@@ -1,0 +1,160 @@
+"""Build and load the hand-written CUDA kernels; count their launches.
+
+The sources under csrc/ have a plain `extern "C"` interface. At first use
+they are compiled with nvcc into one shared library under
+build/fredholm_tpu_torch/ (next to the package), named by a hash of the
+sources and flags, and loaded with ctypes. Nothing here runs at import:
+CPU-only installs import the package without nvcc.
+
+LAUNCHES counts, per name, the launches each kernel wrapper made and the
+calls of each plain twin. With the loaded library and its build record,
+it is the package's only global state.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "fredholm_tpu_torch")
+SOURCES = ("dense_closest.cu", "shade.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode())
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _parse_ptxas(log: str) -> dict:
+    """Per-kernel registers and spill bytes from `-Xptxas -v` output."""
+    out = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1)
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[current]["spill_stores"] = int(m.group(1))
+            out[current]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
+
+
+def build() -> str:
+    """Compile the kernels if no library for these sources exists; returns
+    the library path. Raises on any compiler error."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"libfh_kernels_{_source_hash()}.so")
+    if os.path.exists(lib_path):
+        BUILD_INFO.setdefault("seconds", 0.0)
+        return lib_path
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
+        os.path.join(CSRC_DIR, s) for s in SOURCES
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    log = proc.stdout + proc.stderr
+    BUILD_INFO.update(seconds=seconds, ptxas=_parse_ptxas(log), log=log)
+    return lib_path
+
+
+class ShadeArgs(ctypes.Structure):
+    """Mirror of `ShadeArgs` in csrc/common.cuh (same field order)."""
+
+    _fields_ = [
+        ("sv", ctypes.c_void_p),
+        ("usv", ctypes.c_void_p),
+        ("fused_table", ctypes.c_void_p),
+        ("mat_table", ctypes.c_void_p),
+        ("light_table", ctypes.c_void_p),
+        ("sobol", ctypes.c_void_p),
+        ("n_spp", ctypes.c_void_p),
+        ("sample_idx", ctypes.c_void_p),
+        ("state_in", ctypes.c_void_p),
+        ("state_out", ctypes.c_void_p),
+        ("rays_in", ctypes.c_void_p),
+        ("hit_t", ctypes.c_void_p),
+        ("hit_prim", ctypes.c_void_p),
+        ("hit_u", ctypes.c_void_p),
+        ("hit_v", ctypes.c_void_p),
+        ("pending_in", ctypes.c_void_p),
+        ("pending_out", ctypes.c_void_p),
+        ("rays_out", ctypes.c_void_p),
+        ("aov_out", ctypes.c_void_p),
+        ("rad_out", ctypes.c_void_p),
+        ("rays_in_stride", ctypes.c_longlong),
+        ("n", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("height", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("max_depth", ctypes.c_int),
+        ("n_faces", ctypes.c_int),
+        ("n_mats", ctypes.c_int),
+        ("n_lights", ctypes.c_int),
+        ("lobe_mask", ctypes.c_int),
+    ]
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        handle.fh_dense_closest.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
+        handle.fh_dense_closest.restype = i
+        for name in ("fh_raygen", "fh_mega", "fh_final"):
+            fn = getattr(handle, name)
+            fn.argtypes = [ctypes.POINTER(ShadeArgs), vp]
+            fn.restype = i
+        _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -1,0 +1,73 @@
+"""Host camera state (port of fredholm_tpu/camera.py, host half).
+
+The FPS-style camera (camera.h:22-136) keeps a camera-to-world transform;
+ray generation itself runs in the raygen stage (fused/pt_fused.py and its
+kernel in csrc/shade.cu).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+def _look_at(origin: np.ndarray, target: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """Inverse of glm::lookAt — a camera-to-world 4x4 (camera.h:66-67)."""
+    f = target - origin
+    f = f / max(np.linalg.norm(f), 1e-12)
+    r = np.cross(f, up)
+    r = r / max(np.linalg.norm(r), 1e-12)
+    u = np.cross(r, f)
+    m = np.eye(4, dtype=np.float32)
+    # camera-to-world columns: right, up, backward (OpenGL convention)
+    m[:3, 0] = r
+    m[:3, 1] = u
+    m[:3, 2] = -f
+    m[:3, 3] = origin
+    return m
+
+
+@dataclasses.dataclass
+class Camera:
+    """Camera-to-world transform plus thin-lens parameters."""
+
+    origin: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, np.float32)
+    )
+    fov: float = 0.5 * math.pi
+    f_number: float = 100.0
+    focus: float = 10000.0
+
+    def __post_init__(self):
+        self.origin = np.asarray(self.origin, np.float32)
+        self.forward = np.asarray([0.0, 0.0, -1.0], np.float32)
+        self.right = np.cross(self.forward, [0.0, 1.0, 0.0]).astype(np.float32)
+        self.right /= max(np.linalg.norm(self.right), 1e-12)
+        self.up = np.cross(self.right, self.forward).astype(np.float32)
+        self.up /= max(np.linalg.norm(self.up), 1e-12)
+        self._update_transform()
+
+    def _update_transform(self):
+        self.transform = _look_at(
+            self.origin, self.origin + 0.01 * self.forward, self.up
+        )
+
+    def set_transform(self, m: np.ndarray):
+        """Directly set a camera-to-world 4x4."""
+        self.transform = np.asarray(m, np.float32)
+        self.origin = self.transform[:3, 3].copy()
+
+    def device_params(self, device) -> dict:
+        """CameraParams (shared.h:59-64) as float32 tensors on `device`."""
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        return {
+            "transform": f32(self.transform[:3, :]),  # [3, 4] rows
+            "fov": f32(self.fov),
+            "F": f32(self.f_number),
+            "focus": f32(self.focus),
+        }

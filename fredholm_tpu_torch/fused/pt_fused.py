@@ -1,0 +1,800 @@
+"""Fused wavefront integrator: raygen, per-bounce trace + shade, final
+resolve (port of fredholm_tpu/fused/pt_fused.py, slice 1).
+
+The pipeline bodies (`raygen_body`, `mega_body`, `final_resolve_body`)
+are the reference's jnp bodies written over torch tensors, line for line,
+with the sampler draw order of pt.cu (RR, NEE, light, bounce). They are
+the plain twins of the three CUDA kernels in csrc/shade.cu.
+
+Around them sit the stage functions the kernels implement. A stage reads
+and writes packed float32 planes so one kernel launch touches a handful
+of buffers:
+
+  state   [14, N]    o xyz, d xyz, thr rgb, rad rgb, nv, alive (0/1)
+  pending [11, N]    c_sky rgb, c_area rgb, tpf rgb, pdf_l, wi_l_y
+  aov     [12, N]    position, normal, depth, texcoord uv, albedo
+  rays    [7, B*N]   o xyz, d xyz, tmax; one N-wide block per ray kind in
+                     `FusedConfig.blocks` order
+
+uint32 planes (n_spp, sample_idx, usv) are int64 tensors (core/rng.py).
+Lane i is pixel i (no swizzle; the whole frame is one band).
+
+Envelope of this slice: constant sky, no directional light, no textures
+or alpha, <= MAX_KERNEL_LIGHTS area lights, dense scenes; the Renderer
+raises NotImplementedError naming what is missing.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.rng import MASK, mul32, u32, xxhash32
+from ..scene.device import COL, GEOM_COLS, GEOM_COLS_USED, MAT_COLS
+from . import cbsdf
+from .cmappings import (
+    draw_cmj_2d,
+    draw_sobol_1d,
+    sample_cosine_weighted_hemisphere,
+    sample_concentric_disk,
+    sample_triangle,
+)
+from .cvec import (
+    V3,
+    cross,
+    dot,
+    from_stacked,
+    is_finite3,
+    length,
+    local_to_world,
+    normalize,
+    orthonormal_basis,
+    ray_origin_offset,
+    rgb_to_luminance,
+    to_stacked,
+    vsplat,
+    where3,
+    world_to_local,
+)
+
+RAY_TMAX = 1e9
+SHADOW_RAY_EPS = 1e-3  # pt.cu:11
+MAX_KERNEL_LIGHTS = 16
+
+# packed plane rows (module docstring)
+ST_O, ST_D, ST_THR, ST_RAD, ST_NV, ST_ALIVE, ST_ROWS = 0, 3, 6, 9, 12, 13, 14
+PD_SKY, PD_AREA, PD_TPF, PD_PDF_L, PD_WI_L_Y, PD_ROWS = 0, 3, 6, 9, 10, 11
+AOV_POS, AOV_NRM, AOV_DEPTH, AOV_TU, AOV_TV, AOV_ALB, AOV_ROWS = 0, 3, 6, 7, 8, 9, 12
+RAY_ROWS = 7
+
+# ---------------------------------------------------------------------------
+# scalar-vector packing (pt_fused.py:240-289)
+
+SV_SIZE = 64
+_SV = {
+    "cam": 0, "fov": 12, "F": 13, "focus": 14, "sky_intensity": 15,
+    "bg": 16, "sun_dir": 19,
+}
+USV_SIZE = 8
+_USV = {"seed_hash": 0, "n_pixels": 1}
+
+
+def pack_scalars(params: Dict, n_pixels: int, device):
+    """(sv [64] f32, usv [8] uint32-in-int64) on `device`.
+
+    params: camera (Camera.device_params or numpy values), seed,
+    bg_color. Sky intensity and sun direction keep the reference's
+    defaults; the constant sky reads neither."""
+    sv = np.zeros((SV_SIZE,), np.float32)
+    cam = params["camera"]
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    sv[0:12] = host(cam["transform"]).reshape(-1)
+    sv[12] = host(cam["fov"])
+    sv[13] = host(cam["F"])
+    sv[14] = host(cam["focus"])
+    sv[15] = 1.0
+    sv[16:19] = host(params.get("bg_color", np.zeros(3)))
+    usv = np.zeros((USV_SIZE,), np.int64)
+    usv[0] = int(xxhash32(torch.tensor(int(params["seed"]) % (1 << 32))))
+    usv[1] = n_pixels % (1 << 32)
+    return (
+        torch.as_tensor(sv, device=device),
+        torch.as_tensor(usv, device=device),
+    )
+
+
+def _sv3(sv, base) -> V3:
+    return V3(sv[base], sv[base + 1], sv[base + 2])
+
+
+# ---------------------------------------------------------------------------
+# static pipeline config
+
+
+class FusedConfig(NamedTuple):
+    """Static pipeline config of the slice: constant sky, no directional
+    light, no textures (the reference's sky_mode/has_dl/tex_kinds fields
+    return with the slices that implement them)."""
+
+    width: int
+    height: int
+    max_depth: int
+    n_lights: int
+    lobes_on: tuple
+
+    @property
+    def has_area(self) -> bool:
+        return self.n_lights > 0
+
+    @property
+    def nee_blocks(self) -> tuple:
+        return ("sky", "area") if self.has_area else ("sky",)
+
+    @property
+    def blocks(self) -> tuple:
+        """Ray blocks a bounce emits, in trace order. Dense scenes trace
+        every block in one closest-hit call (pt_fused.py:1272-1284)."""
+        return self.nee_blocks + ("light", "rad")
+
+    @property
+    def n1(self) -> int:  # Sobol 1D draws per bounce
+        return 3 + (1 if self.has_area else 0)
+
+    @property
+    def n2(self) -> int:  # CMJ 2D draws per bounce
+        return 3 + (1 if self.has_area else 0)
+
+    def sobol_dim(self, d: int, slot: int) -> int:
+        """slot 0=rr, then area_u1 (if any), light_u1, bounce_u1 in order."""
+        return 1 + d * self.n1 + slot
+
+    def cmj_depth(self, d: int, slot: int) -> int:
+        """slot among present [sky, area, light, bounce] in order."""
+        return 2 + d * self.n2 + slot
+
+
+# ---------------------------------------------------------------------------
+# pipeline bodies (twins of csrc/shade.cu)
+
+
+def eval_sky_c(cfg: FusedConfig, sv, v: V3) -> V3:
+    """Component-form eval_sky, constant mode (pt.py:168-181)."""
+    bg = _sv3(sv, _SV["bg"])
+    one = torch.ones_like(v.y)
+    return V3(bg.x * one, bg.y * one, bg.z * one)
+
+
+def raygen_body(cfg: FusedConfig, sv, usv, px, py, image_idx, n_spp):
+    """Camera ray + depth-0 RR draw (pt.cu:418-462 head).
+
+    px/py: f32 pixel coords; image_idx/n_spp: uint32 planes. Returns a
+    state dict (o/d V3, tmax, thr V3, alive, sample_idx)."""
+    seed_hash = usv[_USV["seed_hash"]]
+    n_pixels = usv[_USV["n_pixels"]]
+    sample_idx = (u32(image_idx) + mul32(u32(n_spp), n_pixels)) & MASK
+
+    # camera draws: CMJ depths 0 (pixel jitter) and 1 (lens)
+    jx, jy = draw_cmj_2d(n_spp, image_idx, 0, seed_hash)
+    lx, ly = draw_cmj_2d(n_spp, image_idx, 1, seed_hash)
+
+    # pixel_uv (camera.py:146-151)
+    u = (2.0 * (px + jx) - cfg.width) / cfg.height
+    v = (2.0 * (py + jy) - cfg.height) / cfg.height
+    uvx, uvy = -u, v
+
+    # thin-lens (camera.cu:24-53)
+    f = 1.0 / torch.tan(0.5 * sv[_SV["fov"]])
+    b = sv[_SV["focus"]]
+    a = 1.0 / (1.0 + f - 1.0 / b)
+    lens_radius = 2.0 * f / sv[_SV["F"]]
+
+    zeros = torch.zeros_like(uvx)
+    p_sensor = V3(uvx, uvy, zeros)
+    p_lens_center = V3(zeros, zeros, zeros + f)
+    dx, dy = sample_concentric_disk(lx, ly)
+    p_lens = V3(
+        p_lens_center.x + lens_radius * dx,
+        p_lens_center.y + lens_radius * dy,
+        p_lens_center.z,
+    )
+    stl = normalize(p_lens_center - p_sensor)
+    t_obj = (a + b) / stl.z
+    p_object = V3(
+        p_sensor.x + t_obj * stl.x,
+        p_sensor.y + t_obj * stl.y,
+        p_sensor.z + t_obj * stl.z,
+    )
+
+    m = [sv[_SV["cam"] + k] for k in range(12)]
+    origin = V3(
+        m[0] * p_lens.x + m[1] * p_lens.y + m[2] * p_lens.z + m[3],
+        m[4] * p_lens.x + m[5] * p_lens.y + m[6] * p_lens.z + m[7],
+        m[8] * p_lens.x + m[9] * p_lens.y + m[10] * p_lens.z + m[11],
+    )
+    dloc = normalize(p_object - p_lens)
+    dloc = V3(dloc.x, dloc.y, -dloc.z)  # z-flip (camera.cu:19)
+    direction = V3(
+        m[0] * dloc.x + m[1] * dloc.y + m[2] * dloc.z,
+        m[4] * dloc.x + m[5] * dloc.y + m[6] * dloc.z,
+        m[8] * dloc.x + m[9] * dloc.y + m[10] * dloc.z,
+    )
+
+    # depth-0 RR draw (prob 1; the draw is still consumed, pt.cu:455-462)
+    u_rr = draw_sobol_1d(sample_idx, cfg.sobol_dim(0, 0), seed_hash)
+    alive = u_rr < 1.0
+    one = torch.ones_like(u_rr)
+    return {
+        "o": origin,
+        "d": direction,
+        "tmax": torch.where(alive, RAY_TMAX, -1.0),
+        "thr": V3(one, one, one),
+        "alive": alive,
+        "sample_idx": sample_idx,
+    }
+
+
+def _interp3(attr, base, w0, w1, w2) -> V3:
+    """Interpolate a per-vertex vec3 attribute laid out as 9 consecutive
+    columns (v0.xyz, v1.xyz, v2.xyz) starting at `base`."""
+    return V3(
+        w0 * attr[base + 0] + w1 * attr[base + 3] + w2 * attr[base + 6],
+        w0 * attr[base + 1] + w1 * attr[base + 4] + w2 * attr[base + 7],
+        w0 * attr[base + 2] + w1 * attr[base + 5] + w2 * attr[base + 8],
+    )
+
+
+def _attr3(attr, name) -> V3:
+    c = COL[name]
+    return V3(attr[c], attr[c + 1], attr[c + 2])
+
+
+def _shading_params_from_attr(attr) -> Dict:
+    """fill_shading_params, no-texture path (pt.py:222-256)."""
+    return {
+        "base_color": _attr3(attr, "base_color"),
+        "diffuse": attr[COL["diffuse"]],
+        "diffuse_roughness": attr[COL["diffuse_roughness"]],
+        "specular": attr[COL["specular"]],
+        "specular_color": _attr3(attr, "specular_color"),
+        "specular_roughness": torch.clamp(attr[COL["specular_roughness"]], 0.01, 1.0),
+        "metalness": attr[COL["metalness"]],
+        "coat": torch.clamp(attr[COL["coat"]], 0.0, 1.0),
+        "coat_roughness": torch.clamp(attr[COL["coat_roughness"]], 0.0, 1.0),
+        "coat_color": _attr3(attr, "coat_color"),
+        "transmission": attr[COL["transmission"]],
+        "transmission_color": _attr3(attr, "transmission_color"),
+        "sheen": attr[COL["sheen"]],
+        "sheen_color": _attr3(attr, "sheen_color"),
+        "sheen_roughness": attr[COL["sheen_roughness"]],
+        "subsurface": attr[COL["subsurface"]],
+        "subsurface_color": _attr3(attr, "subsurface_color"),
+        "thin_walled": attr[COL["thin_walled"]],
+    }
+
+
+def _select_light(light_table, n_lights: int, u1):
+    """Light-row select by sampled index (pt.cu:282-322 head)."""
+    idx = torch.clamp((u1 * n_lights).to(torch.int64), 0, max(n_lights - 1, 0))
+    rows = light_table[idx]
+
+    def sel3(col):
+        return V3(rows[:, col], rows[:, col + 1], rows[:, col + 2])
+
+    return (
+        sel3(0), sel3(3), sel3(6),    # verts
+        sel3(9), sel3(12), sel3(15),  # normals
+        sel3(18),                      # le
+        rows[:, 21],                   # area
+    )
+
+
+def _clip3(v: V3, lo, hi) -> V3:
+    return V3(torch.clamp(v.x, lo, hi), torch.clamp(v.y, lo, hi), torch.clamp(v.z, lo, hi))
+
+
+def _resolve_pending(cfg: FusedConfig, sv, rad: V3, resolve: Dict) -> V3:
+    """Apply bounce d-1's pending NEE visibility + BSDF-light-ray MIS
+    (pt.cu:767-925 tails)."""
+    zero = torch.zeros_like(rad.x)
+    z3 = V3(zero, zero, zero)
+    for blk in cfg.nee_blocks:
+        vis = ~resolve["occ_" + blk]
+        c = resolve["c_" + blk]
+        rad = rad + where3(vis, c, z3)
+
+    ldir = resolve["l_d"]
+    l_hit = resolve["l_hit"]
+    le_miss = eval_sky_c(cfg, sv, ldir)
+    pdf_light_miss = torch.abs(resolve["wi_l_y"]) / math.pi
+    if not cfg.has_area:
+        le = where3(l_hit, z3, le_miss)
+        pdf_light = pdf_light_miss
+    else:
+        la = resolve["lattr"]
+        lw1 = resolve["l_u"]
+        lw2 = resolve["l_v"]
+        lw0 = 1.0 - lw1 - lw2
+        l_p = _interp3(la, COL["v0"], lw0, lw1, lw2)
+        l_n = _interp3(la, COL["n0"], lw0, lw1, lw2)
+        l_emissive = (la[COL["has_emission"]] > 0.0) & (dot(-ldir, l_n) > 0.0)
+        hit_light = l_hit & l_emissive
+
+        le_hit = _attr3(la, "emission_color")
+        le = where3(l_hit, where3(hit_light, le_hit, z3), le_miss)
+
+        to_p = l_p - resolve["l_o"]
+        r2 = dot(to_p, to_p)
+        n_l = max(cfg.n_lights, 1)
+        pdf_area_hit = 1.0 / (n_l * torch.clamp(la[COL["area"]], min=1e-12))
+        pdf_light_hit = (
+            r2 / torch.clamp(torch.abs(dot(-ldir, l_n)), min=1e-12) * pdf_area_hit
+        )
+        pdf_light = torch.where(hit_light, pdf_light_hit, pdf_light_miss)
+    pdf_l = resolve["pdf_l"]
+    # guard 0/0 (pt.py keeps mis_w inside a pdf_l>0 where-branch)
+    mis_w = torch.where(pdf_l > 0.0, pdf_l / torch.clamp(pdf_l + pdf_light, min=1e-20), 0.0)
+    w = _clip3(resolve["tpf"] * vsplat(mis_w), 0.0, 1.0)
+    return rad + w * le
+
+
+def _nee_tmax(c: V3, tmax):
+    """Kill a shadow/light ray whose pending contribution is exactly zero:
+    the resolve multiplies c by the occlusion boolean, so the trace result
+    is irrelevant (bit-identical images)."""
+    nz = (c.x > 0.0) | (c.y > 0.0) | (c.z > 0.0)
+    return torch.where(nz, tmax, -1.0)
+
+
+def mega_body(cfg: FusedConfig, d: int, sv, usv, image_idx, n_spp,
+              sample_idx, light_table, state: Dict, rhit: Dict,
+              rattr: Dict, resolve: Dict):
+    """Resolve bounce d-1 pending transport, shade bounce d, emit all of
+    bounce d's rays + next RR (pt.cu:455-943 for one depth).
+
+    Returns (new_state, rays {blk: (o V3, d V3, tmax)}, pending, aovs)."""
+    seed_hash = usv[_USV["seed_hash"]]
+    alive = state["alive"]
+    thr = state["thr"]
+    zero = torch.zeros_like(rhit["t"])
+    z3 = V3(zero, zero, zero)
+    rad = state["rad"] if state.get("rad") is not None else z3
+    nv = state["nv"] if state.get("nv") is not None else zero
+
+    if d > 0:
+        rad = _resolve_pending(cfg, sv, rad, resolve)
+
+    # ---- shade bounce d
+    hit = rhit["hit"]
+    direction = state["d"]
+
+    if d == 0:
+        # sky on first-hit miss (pt.cu:504-523)
+        sky_le = eval_sky_c(cfg, sv, direction)
+        miss_first = alive & ~hit
+        rad = rad + where3(miss_first, thr * sky_le, z3)
+    alive = alive & hit
+    nv = nv + torch.where(alive, 1.0, 0.0)
+
+    # surface info (pt.py fill_surface_info)
+    w1 = rhit["u"]
+    w2 = rhit["v"]
+    w0 = 1.0 - w1 - w2
+    x = _interp3(rattr, COL["v0"], w0, w1, w2)
+    fv0 = _attr3(rattr, "v0")
+    fv1 = _attr3(rattr, "v1")
+    fv2 = _attr3(rattr, "v2")
+    n_g = normalize(cross(fv1 - fv0, fv2 - fv0), eps=1e-20)
+    n_s = normalize(_interp3(rattr, COL["n0"], w0, w1, w2), eps=1e-20)
+    texcoord_u = (
+        w0 * rattr[COL["uv0"]] + w1 * rattr[COL["uv1"]]
+        + w2 * rattr[COL["uv2"]]
+    )
+    texcoord_v = (
+        w0 * rattr[COL["uv0"] + 1] + w1 * rattr[COL["uv1"] + 1]
+        + w2 * rattr[COL["uv2"] + 1]
+    )
+    is_entering = dot(-direction, n_g) > 0.0
+    flip = torch.where(is_entering, 1.0, -1.0)
+    n_s = V3(n_s.x * flip, n_s.y * flip, n_s.z * flip)
+    n_g = V3(n_g.x * flip, n_g.y * flip, n_g.z * flip)
+    tangent, bitangent = orthonormal_basis(n_s)
+
+    sp = _shading_params_from_attr(rattr)
+
+    aovs = None
+    if d == 0:
+        # first-hit AOVs + emissive-hit termination (pt.cu:745-760)
+        capture = alive
+        aovs = {
+            "position": where3(capture, x, z3),
+            "normal": where3(capture, n_s, z3),
+            "depth": torch.where(capture, rhit["t"], 0.0),
+            "texcoord_u": torch.where(capture, texcoord_u, 0.0),
+            "texcoord_v": torch.where(capture, texcoord_v, 0.0),
+            "albedo": where3(capture, sp["base_color"], z3),
+        }
+        emissive = rattr[COL["has_emission"]] > 0.0
+        emit_now = capture & emissive
+        le0 = _attr3(rattr, "emission_color")
+        rad = rad + where3(emit_now, thr * le0, z3)
+        alive = alive & ~emit_now
+
+    # BSDF context
+    wo = world_to_local(-direction, tangent, n_s, bitangent)
+    ctx = cbsdf.setup(wo, sp, is_entering, cfg.lobes_on)
+    shadow_origin = ray_origin_offset(x, n_g)
+    shadow_tmax = torch.where(alive, RAY_TMAX, -1.0)
+
+    rays = {}
+    pending = {}
+
+    # ---- NEE (pt.cu:767-890); draw order sky, [area]
+    cmj_slot = 0
+    ux, uy = draw_cmj_2d(n_spp, image_idx, cfg.cmj_depth(d, cmj_slot), seed_hash)
+    cmj_slot += 1
+    wi_sky = sample_cosine_weighted_hemisphere(ux, uy)
+    sdir_sky = local_to_world(wi_sky, tangent, n_s, bitangent)
+    cos_sky = torch.abs(wi_sky.y)
+    pdf_sky = cos_sky / math.pi
+    f = cbsdf.eval(ctx, wo, wi_sky)
+    pdf_bsdf = cbsdf.eval_pdf(ctx, wo, wi_sky)
+    mis_w = pdf_sky / (pdf_sky + pdf_bsdf)
+    scale = torch.where(pdf_sky > 0.0, mis_w * cos_sky / torch.clamp(pdf_sky, min=1e-12), 0.0)
+    wgt = _clip3(thr * vsplat(scale) * f, 0.0, 1.0)
+    sky_le_nee = eval_sky_c(cfg, sv, sdir_sky)
+    pending["c_sky"] = where3(alive, wgt * sky_le_nee, z3)
+    rays["sky"] = (shadow_origin, sdir_sky,
+                   _nee_tmax(pending["c_sky"], shadow_tmax))
+
+    sobol_slot = 1
+    if cfg.has_area:
+        u1 = draw_sobol_1d(sample_idx, cfg.sobol_dim(d, sobol_slot), seed_hash)
+        sobol_slot += 1
+        ux, uy = draw_cmj_2d(
+            n_spp, image_idx, cfg.cmj_depth(d, cmj_slot), seed_hash
+        )
+        cmj_slot += 1
+        fv0l, fv1l, fv2l, fn0l, fn1l, fn2l, le_l, area_l = _select_light(
+            light_table, cfg.n_lights, u1
+        )
+        b0, b1 = sample_triangle(ux, uy)
+        lb0 = 1.0 - b0 - b1
+        p_l = V3(
+            lb0 * fv0l.x + b0 * fv1l.x + b1 * fv2l.x,
+            lb0 * fv0l.y + b0 * fv1l.y + b1 * fv2l.y,
+            lb0 * fv0l.z + b0 * fv1l.z + b1 * fv2l.z,
+        )
+        n_lv = V3(
+            lb0 * fn0l.x + b0 * fn1l.x + b1 * fn2l.x,
+            lb0 * fn0l.y + b0 * fn1l.y + b1 * fn2l.y,
+            lb0 * fn0l.z + b0 * fn1l.z + b1 * fn2l.z,
+        )
+        pdf_area = 1.0 / (cfg.n_lights * torch.clamp(area_l, min=1e-12))
+
+        to_l = p_l - shadow_origin
+        r = length(to_l)
+        inv_r = 1.0 / torch.clamp(r, min=1e-12)
+        sdir_area = V3(to_l.x * inv_r, to_l.y * inv_r, to_l.z * inv_r)
+
+        front = dot(-sdir_area, n_lv) > 0.0
+        wi = world_to_local(sdir_area, tangent, n_s, bitangent)
+        f = cbsdf.eval(ctx, wo, wi)
+        pdf = (
+            r * r / torch.clamp(torch.abs(dot(-sdir_area, n_lv)), min=1e-12)
+            * pdf_area
+        )
+        pdf_bsdf = cbsdf.eval_pdf(ctx, wo, wi)
+        mis_w = pdf / (pdf + pdf_bsdf)
+        wgt = _clip3(
+            thr * vsplat(mis_w * torch.abs(wi.y) / torch.clamp(pdf, min=1e-12)) * f,
+            0.0,
+            1.0,
+        )
+        pending["c_area"] = where3(alive & front, wgt * le_l, z3)
+        rays["area"] = (
+            shadow_origin,
+            sdir_area,
+            _nee_tmax(pending["c_area"],
+                      torch.where(alive, r - SHADOW_RAY_EPS, -1.0)),
+        )
+
+    # ---- BSDF-sampled light ray (pt.cu:892-925 head)
+    u1 = draw_sobol_1d(sample_idx, cfg.sobol_dim(d, sobol_slot), seed_hash)
+    sobol_slot += 1
+    ux, uy = draw_cmj_2d(n_spp, image_idx, cfg.cmj_depth(d, cmj_slot), seed_hash)
+    cmj_slot += 1
+    wi_l, f_l, pdf_l = cbsdf.sample(ctx, wo, u1, ux, uy)
+    ldir = local_to_world(wi_l, tangent, n_s, bitangent)
+    transmitted = dot(ldir, n_g) < 0.0
+    lorigin = ray_origin_offset(x, where3(transmitted, -n_g, n_g))
+
+    tpf_scale = torch.where(
+        pdf_l > 0.0, torch.abs(wi_l.y) / torch.clamp(pdf_l, min=1e-12), 0.0
+    )
+    pending["tpf"] = where3(alive, thr * vsplat(tpf_scale) * f_l, z3)
+    rays["light"] = (lorigin, ldir,
+                     _nee_tmax(pending["tpf"], torch.where(alive, RAY_TMAX, -1.0)))
+    pending["pdf_l"] = pdf_l
+    pending["wi_l_y"] = wi_l.y
+
+    # ---- next bounce (pt.cu:927-943)
+    u1 = draw_sobol_1d(sample_idx, cfg.sobol_dim(d, sobol_slot), seed_hash)
+    ux, uy = draw_cmj_2d(n_spp, image_idx, cfg.cmj_depth(d, cmj_slot), seed_hash)
+    wi_n, f_n, pdf_n = cbsdf.sample(ctx, wo, u1, ux, uy)
+    wi_world = local_to_world(wi_n, tangent, n_s, bitangent)
+    bounce_w = torch.where(
+        pdf_n > 0.0, torch.abs(wi_n.y) / torch.clamp(pdf_n, min=1e-12), 0.0
+    )
+    new_thr = thr * f_n * vsplat(bounce_w)
+    transmitted = dot(wi_world, n_g) < 0.0
+    new_o = ray_origin_offset(x, where3(transmitted, -n_g, n_g))
+
+    alive_next = alive & is_finite3(new_thr) & (pdf_n > 0.0)
+
+    # dead lanes keep stale ray state (pt.py `keep` masking)
+    new_o = where3(alive_next, new_o, state["o"])
+    new_d = where3(alive_next, wi_world, direction)
+    new_thr = where3(alive_next, new_thr, thr)
+
+    # ---- RR for bounce d+1 (drawn here == start of pt.cu body d+1)
+    if d + 1 < cfg.max_depth:
+        u_rr = draw_sobol_1d(sample_idx, cfg.sobol_dim(d + 1, 0), seed_hash)
+        rr_prob = torch.clamp(rgb_to_luminance(new_thr), 0.0, 1.0)
+        alive_next = alive_next & (u_rr < rr_prob)
+        inv_rr = 1.0 / torch.clamp(rr_prob, min=1e-12)
+        new_thr = V3(new_thr.x * inv_rr, new_thr.y * inv_rr, new_thr.z * inv_rr)
+
+    rays["rad"] = (new_o, new_d, torch.where(alive_next, RAY_TMAX, -1.0))
+
+    new_state = {
+        "o": new_o,
+        "d": new_d,
+        "thr": new_thr,
+        "alive": alive_next,
+        "rad": rad,
+        "nv": nv,
+    }
+    return new_state, rays, pending, aovs
+
+
+def final_resolve_body(cfg: FusedConfig, sv, state: Dict, resolve: Dict):
+    """Resolve the LAST bounce's pending transport + NaN scrub
+    (pt.cu:474-478)."""
+    rad = _resolve_pending(cfg, sv, state["rad"], resolve)
+    zero = torch.zeros_like(rad.x)
+    return where3(is_finite3(rad), rad, V3(zero, zero, zero))
+
+
+# ---------------------------------------------------------------------------
+# attribute fetch + resolve assembly
+
+
+def _gather_attrs(tables: Dict, prim) -> Dict:
+    """Geometry row by clamped prim, then material row by the rounded,
+    clamped mat_id (pt_fused.py:1221-1234), as plain indexing."""
+    table = tables["fused_table"]
+    p = torch.clamp(prim.to(torch.int64), 0, table.shape[0] - 1)
+    geom = table[p]
+    attrs = {c: geom[:, c] for c in range(GEOM_COLS_USED)}
+    mat_table = tables["fused_mat_table"]
+    mid = torch.round(geom[:, COL["mat_id"]]).to(torch.int64)
+    mid = torch.clamp(mid, 0, mat_table.shape[0] - 1)
+    mat = mat_table[mid]
+    for c in range(MAT_COLS):
+        attrs[GEOM_COLS + c] = mat[:, c]
+    return attrs
+
+
+def _make_resolve(cfg, hit_all, blocks, n, prev_rays, prev_pending):
+    """Resolve inputs for the previous bounce; every block rode the one
+    closest-hit trace (pt_fused.py:1297-1328 without the any-hit split)."""
+    def blk(arr, b):
+        i = blocks.index(b)
+        return arr[i * n:(i + 1) * n]
+
+    resolve = {
+        "l_d": prev_rays["light"][1],
+        "tpf": prev_pending["tpf"],
+        "pdf_l": prev_pending["pdf_l"],
+        "wi_l_y": prev_pending["wi_l_y"],
+        "l_hit": blk(hit_all["hit"], "light"),
+    }
+    if cfg.has_area:
+        resolve["l_u"] = blk(hit_all["u"], "light")
+        resolve["l_v"] = blk(hit_all["v"], "light")
+        resolve["l_o"] = prev_rays["light"][0]
+    for b in cfg.nee_blocks:
+        resolve["occ_" + b] = blk(hit_all["hit"], b)
+        resolve["c_" + b] = prev_pending["c_" + b]
+    return resolve
+
+
+# ---------------------------------------------------------------------------
+# stage twins over packed planes (the functions csrc/shade.cu implements)
+
+
+def _unpack_state(state):
+    return {
+        "o": from_stacked(state[ST_O:ST_O + 3]),
+        "d": from_stacked(state[ST_D:ST_D + 3]),
+        "thr": from_stacked(state[ST_THR:ST_THR + 3]),
+        "rad": from_stacked(state[ST_RAD:ST_RAD + 3]),
+        "nv": state[ST_NV],
+        "alive": state[ST_ALIVE] != 0.0,
+    }
+
+
+def _pack_state(st) -> torch.Tensor:
+    alive = st["alive"].to(torch.float32)
+    return torch.stack([
+        *st["o"], *st["d"], *st["thr"], *st["rad"], st["nv"], alive,
+    ])
+
+
+def _unpack_pending(pending, cfg):
+    out = {
+        "c_sky": from_stacked(pending[PD_SKY:PD_SKY + 3]),
+        "tpf": from_stacked(pending[PD_TPF:PD_TPF + 3]),
+        "pdf_l": pending[PD_PDF_L],
+        "wi_l_y": pending[PD_WI_L_Y],
+    }
+    if cfg.has_area:
+        out["c_area"] = from_stacked(pending[PD_AREA:PD_AREA + 3])
+    return out
+
+
+def _pack_pending(p) -> torch.Tensor:
+    zero = torch.zeros_like(p["pdf_l"])
+    c_area = p.get("c_area", V3(zero, zero, zero))
+    return torch.stack([*p["c_sky"], *c_area, *p["tpf"], p["pdf_l"],
+                        p["wi_l_y"]])
+
+
+def _unpack_rays(rays, blocks, n):
+    out = {}
+    for i, b in enumerate(blocks):
+        r = rays[:, i * n:(i + 1) * n]
+        out[b] = (from_stacked(r[0:3]), from_stacked(r[3:6]), r[6])
+    return out
+
+
+def _pack_rays(rays_d, blocks) -> torch.Tensor:
+    return torch.cat([
+        torch.stack([*rays_d[b][0], *rays_d[b][1], rays_d[b][2]])
+        for b in blocks
+    ], dim=1)
+
+
+def _hit_all(hits):
+    return {**hits, "hit": hits["prim"] >= 0}
+
+
+def _lane_index(cfg: FusedConfig, device):
+    return torch.arange(cfg.width * cfg.height, dtype=torch.int64, device=device)
+
+
+def raygen_twin(cfg: FusedConfig, sv, usv, n_spp):
+    """Stage twin of the raygen kernel: (state, sample_idx, rays [7, N])."""
+    lane = _lane_index(cfg, sv.device)
+    px = (lane % cfg.width).to(torch.float32)
+    py = (lane // cfg.width).to(torch.float32)
+    st = raygen_body(cfg, sv, usv, px, py, lane, n_spp)
+    zero = torch.zeros_like(st["tmax"])
+    rays = torch.stack([*st["o"], *st["d"], st["tmax"]])
+    state = _pack_state({**st, "rad": V3(zero, zero, zero), "nv": zero})
+    return state, st["sample_idx"], rays
+
+
+def mega_twin(cfg: FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
+              sample_idx, state, rays, hits, pending):
+    """Stage twin of the mega kernel: gather the hit attributes, assemble
+    the resolve of bounce d-1, run mega_body, pack the outputs.
+
+    Returns (state, rays [7, B*N], pending, aov or None)."""
+    n = state.shape[1]
+    lane = _lane_index(cfg, state.device)
+    blocks = ("rad",) if d == 0 else cfg.blocks
+    hit_all = _hit_all(hits)
+    ri = blocks.index("rad")
+    rhit = {k: hit_all[k][ri * n:(ri + 1) * n] for k in ("hit", "t", "u", "v")}
+    rattr = _gather_attrs(tables, hit_all["prim"][ri * n:(ri + 1) * n])
+    if d > 0:
+        resolve = _make_resolve(
+            cfg, hit_all, blocks, n, _unpack_rays(rays, blocks, n),
+            _unpack_pending(pending, cfg),
+        )
+        if cfg.has_area:
+            li = blocks.index("light")
+            resolve["lattr"] = _gather_attrs(
+                tables, hit_all["prim"][li * n:(li + 1) * n])
+    else:
+        resolve = {}
+    st, rays_d, pend, aovs = mega_body(
+        cfg, d, sv, usv, lane, n_spp, sample_idx, tables["light_table"],
+        _unpack_state(state), rhit, rattr, resolve,
+    )
+    aov = None
+    if aovs is not None:
+        aov = torch.stack([
+            *aovs["position"], *aovs["normal"], aovs["depth"],
+            aovs["texcoord_u"], aovs["texcoord_v"], *aovs["albedo"],
+        ])
+    return _pack_state(st), _pack_rays(rays_d, cfg.blocks), _pack_pending(pend), aov
+
+
+def final_twin(cfg: FusedConfig, sv, tables: Dict, state, rays, hits, pending):
+    """Stage twin of the final-resolve kernel; hits cover the ray blocks
+    before "rad". Returns radiance [3, N]."""
+    n = state.shape[1]
+    blocks = cfg.blocks[:-1]
+    hit_all = _hit_all(hits)
+    resolve = _make_resolve(
+        cfg, hit_all, blocks, n, _unpack_rays(rays, blocks, n),
+        _unpack_pending(pending, cfg),
+    )
+    if cfg.has_area:
+        li = blocks.index("light")
+        resolve["lattr"] = _gather_attrs(tables, hit_all["prim"][li * n:(li + 1) * n])
+    return to_stacked(final_resolve_body(cfg, sv, _unpack_state(state), resolve))
+
+
+# ---------------------------------------------------------------------------
+# orchestrator
+
+
+def render_sample_fused(dev: Dict, params: Dict, n_spp):
+    """One progressive sample of every pixel; returns the stacked [N, ...]
+    AOV dict of the reference (radiance, position, normal, depth, texcoord,
+    albedo, n_path_vertices, n_lane_slots).
+
+    Each stage goes through its wrapper (accel/dense.py, fused/kernels.py):
+    on CUDA tensors that is a hand kernel, on CPU tensors the twin."""
+    from ..accel.dense import intersect_closest
+    from . import kernels
+
+    width, height = params["width"], params["height"]
+    n = width * height
+    cfg = FusedConfig(
+        width=width,
+        height=height,
+        max_depth=params["max_depth"],
+        n_lights=dev["n_lights"],
+        lobes_on=tuple(params["lobes_on"]),
+    )
+    device = dev["fused_table"].device
+    sv, usv = pack_scalars(params, n, device)
+
+    state, sample_idx, rays = kernels.raygen(cfg, sv, usv, n_spp)
+    pending = None
+    aov = None
+    for d in range(cfg.max_depth):
+        hits = intersect_closest(dev["tri_soa"], rays, rays.shape[1])
+        state, rays, pending, aov_d = kernels.mega(
+            cfg, d, sv, usv, dev, n_spp, sample_idx, state, rays, hits,
+            pending,
+        )
+        if d == 0:
+            aov = aov_d
+    # final: trace the last bounce's NEE + light blocks (all but "rad")
+    hits = intersect_closest(dev["tri_soa"], rays, (len(cfg.blocks) - 1) * n)
+    rad = kernels.final(cfg, sv, dev, state, rays, hits, pending)
+
+    return {
+        "radiance": rad.T,
+        "position": aov[AOV_POS:AOV_POS + 3].T,
+        "normal": aov[AOV_NRM:AOV_NRM + 3].T,
+        "depth": aov[AOV_DEPTH],
+        "texcoord": aov[AOV_TU:AOV_TV + 1].T,
+        "albedo": aov[AOV_ALB:AOV_ALB + 3].T,
+        "n_path_vertices": torch.sum(state[ST_NV]),
+        "n_lane_slots": torch.tensor(float(n * cfg.max_depth),
+                                     dtype=torch.float32, device=device),
+    }

@@ -1,0 +1,146 @@
+"""Host-side render orchestration (port of fredholm_tpu/renderer.py, the
+API slice 1 needs).
+
+Owns the device scene, the camera, the constant sky, the per-pixel sample
+counts and the six AOV layers, and drives the progressive integrator on
+`device`. On a CUDA device every stage runs a hand-written kernel; on the
+CPU the same stages run their plain PyTorch twins.
+
+Left out on purpose (TPU scheduling devices that only re-order work):
+row bands, spp chunking, pixel swizzle and the (w*h) % 128 gate.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .camera import Camera
+from .fused.cbsdf import ALL_LOBES
+from .fused.pt_fused import MAX_KERNEL_LIGHTS
+from .integrator.pt import make_layers, render_progressive
+from .scene.device import DENSE_MAX_FACES, build_device_scene
+from .scene.types import Scene
+
+
+def _scene_lobes(scene: Scene) -> tuple:
+    """BSDF lobes any material can activate (renderer.py:166-197)."""
+    mats = scene.materials or []
+    lobes = []
+    if any(m.coat > 0 or m.coat_texture_id >= 0 for m in mats):
+        lobes.append("coat")
+    if any(m.metalness > 0 or m.metalness_texture_id >= 0
+           or m.metallic_roughness_texture_id >= 0 for m in mats):
+        lobes.append("metal")
+    if any(m.specular > 0 and max(m.specular_color) > 0 for m in mats):
+        lobes.append("specular")
+    if any(m.transmission > 0 for m in mats):
+        lobes.append("transmission")
+    if any(m.sheen > 0 for m in mats):
+        lobes.append("sheen")
+    if any(m.subsurface > 0 and m.thin_walled > 0 for m in mats):
+        lobes.append("diffuse_t")
+    if any(m.diffuse > 0 for m in mats):
+        lobes.append("diffuse_r")
+    if any(getattr(m, "thin_film_thickness", 0.0) > 0 for m in mats):
+        lobes.append("thin_film")
+    return tuple(lobes)
+
+
+def _check_envelope(scene: Scene, lobes: tuple) -> None:
+    """Raise NotImplementedError naming what slice 1 does not port."""
+    if scene.n_faces() > DENSE_MAX_FACES:
+        raise NotImplementedError(
+            f"{scene.n_faces()} faces: the clustered path for scenes above "
+            f"{DENSE_MAX_FACES} faces is not ported yet")
+    if scene.textures or any(
+        getattr(m, k) >= 0 for m in scene.materials
+        for k in ("base_color_texture_id", "specular_color_texture_id",
+                  "specular_roughness_texture_id", "metalness_texture_id",
+                  "metallic_roughness_texture_id", "coat_texture_id",
+                  "coat_roughness_texture_id", "emission_texture_id",
+                  "heightmap_texture_id", "normalmap_texture_id",
+                  "alpha_texture_id")
+    ):
+        raise NotImplementedError("textures and alpha cutout are not ported yet")
+    if "thin_film" in lobes:
+        raise NotImplementedError("thin-film interference is not ported yet")
+    n_lights = len(scene.emissive_faces())
+    if n_lights > MAX_KERNEL_LIGHTS:
+        raise NotImplementedError(
+            f"{n_lights} area lights > {MAX_KERNEL_LIGHTS} (the light-table "
+            f"path for more is not ported yet)")
+
+
+class Renderer:
+    """Progressive path tracer with six AOV layers on one device."""
+
+    def __init__(self, width: int = 512, height: int = 512, device="cpu"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Renderer(device='cuda') needs a CUDA device")
+        if self.device.type not in ("cpu", "cuda"):
+            raise NotImplementedError(f"no port for device {self.device}")
+        self.width = width
+        self.height = height
+        self.scene: Optional[Scene] = None
+        self._dev: Optional[Dict] = None
+        self._lobes: tuple = ()
+        self.camera = Camera(origin=np.asarray([0.0, 1.0, 5.0], np.float32))
+        self.bg_color = np.zeros(3, np.float32)  # the constant sky
+        self.seed = 42
+        self.init_render_states()
+
+    # -- scene / sky --------------------------------------------------------
+
+    def set_scene(self, scene: Scene):
+        lobes = _scene_lobes(scene)
+        _check_envelope(scene, lobes)
+        self._dev = build_device_scene(scene, self.device)
+        self._lobes = tuple(lobe for lobe in ALL_LOBES if lobe in lobes)
+        self.scene = scene
+        self.init_render_states()
+
+    def set_bg_color(self, color):
+        self.bg_color = np.asarray(color, np.float32)
+
+    # -- render state -------------------------------------------------------
+
+    def init_render_states(self):
+        """Zero the accumulators (renderer.h:650-655)."""
+        n = self.width * self.height
+        self.layers = make_layers(n, self.device)
+        self.sample_count = torch.zeros((n,), dtype=torch.int64, device=self.device)
+
+    def _params(self, max_depth: int) -> Dict:
+        return {
+            "width": self.width,
+            "height": self.height,
+            "max_depth": max_depth,
+            "lobes_on": self._lobes,
+            "camera": self.camera.device_params("cpu"),
+            "seed": self.seed,
+            "bg_color": self.bg_color,
+        }
+
+    def render(self, n_samples: int = 1, max_depth: int = 10) -> Dict:
+        """Accumulate n_samples progressive spp; returns the AOV layers
+        (Renderer::render, renderer.h:657-734)."""
+        if self._dev is None:
+            raise RuntimeError("no scene loaded")
+        self.layers, self.sample_count = render_progressive(
+            self._dev, self._params(max_depth), self.layers,
+            self.sample_count, n_samples,
+        )
+        return self.layers
+
+    # -- output ------------------------------------------------------------
+
+    def get_layer(self, name: str) -> np.ndarray:
+        """AOV as a [H, W, C] numpy image (top-down rows)."""
+        buf = self.layers[name].detach().cpu().numpy()
+        if buf.ndim == 1:
+            buf = buf[:, None]
+        return buf.reshape(self.height, self.width, -1)

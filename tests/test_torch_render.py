@@ -1,0 +1,155 @@
+"""Slice 1 as a whole: the port's host scene and tables are byte-equal to
+the reference's, and `fredholm_tpu_torch.Renderer` on the CPU renders
+the Cornell box like `fredholm_tpu.Renderer` (all six layers at
+rtol = atol = 2e-4, the bar of tests/test_fused_integrator.py:55-58;
+n_path_vertices at rtol 1e-6). The setup mirrors test_fused_integrator's
+so XLA:CPU's persistent compile cache serves both files."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fredholm_tpu.renderer import Renderer as JRenderer
+from fredholm_tpu.scene.device import build_device_scene as j_build
+from fredholm_tpu.scene.procedural import cornell_box as j_cornell
+from fredholm_tpu_torch import Renderer, cornell_box
+from fredholm_tpu_torch.scene import device as tdev
+
+LAYERS = ("beauty", "position", "normal", "depth", "texcoord", "albedo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _setup(cls, **kw):
+    r = cls(width=32, height=32, **kw)
+    r.set_scene(cornell_box() if cls is Renderer else j_cornell())
+    r.camera.origin = np.asarray([0.0, 1.0, 0.6], np.float32)
+    r.camera._update_transform()
+    return r
+
+
+@pytest.fixture(scope="module")
+def reference_tables():
+    dev = j_build(j_cornell())
+    return {
+        "fused_table": np.asarray(dev["fused_table"]),
+        "fused_mat_table": np.asarray(dev["fused_mat_table"]),
+        "light_table": np.asarray(dev["light_table"]),
+        "tri_soa": {k: np.asarray(v) for k, v in dev["tri_soa"].items()},
+        "n_lights": dev["n_lights"],
+        "n_faces": dev["n_faces"],
+    }
+
+
+def test_cornell_host_scene_is_byte_equal():
+    a, b = cornell_box(), j_cornell()
+    for k in ("vertices", "normals", "texcoords", "indices", "material_ids",
+              "instance_ids", "transforms"):
+        x, y = getattr(a, k), getattr(b, k)
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), k
+    assert [vars(m) for m in a.materials] == [vars(m) for m in b.materials]
+
+
+@pytest.mark.parametrize("key", ["fused_table", "fused_mat_table", "light_table"])
+def test_upload_tables_byte_equal(reference_tables, key):
+    port = tdev.build_device_scene(cornell_box(), "cpu")
+    got, want = port[key].numpy(), reference_tables[key]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+def test_upload_tri_soa_byte_equal(reference_tables):
+    port = tdev.build_device_scene(cornell_box(), "cpu")
+    assert port["n_lights"] == reference_tables["n_lights"] == 2
+    assert port["n_faces"] == reference_tables["n_faces"] == 36
+    for row, key in enumerate(tdev._TRI_KEYS):
+        want = reference_tables["tri_soa"][key][0]
+        assert port["tri_soa"][row].numpy().tobytes() == want.tobytes(), key
+
+
+def test_dev_from_reference_round_trip(reference_tables):
+    port = tdev.build_device_scene(cornell_box(), "cpu")
+    carried = tdev.dev_from_reference(reference_tables, "cpu")
+    assert set(carried) == set(port)
+    for k, v in port.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(carried[k], v), k
+        else:
+            assert carried[k] == v, k
+
+
+@pytest.fixture(scope="module")
+def both_renders():
+    j = _setup(JRenderer)
+    assert j._config(1, 4).use_fused and j._config(1, 4).lobes_on == ("diffuse_r",)
+    j.render(n_samples=2, max_depth=4)
+    t = _setup(Renderer, device="cpu")
+    t.render(n_samples=2, max_depth=4)
+    return t.layers, {k: np.asarray(v) for k, v in j.layers.items()}
+
+
+@pytest.mark.parametrize("key", LAYERS)
+def test_slice_matches_reference(both_renders, key):
+    got, want = both_renders
+    np.testing.assert_allclose(got[key].numpy(), want[key], rtol=2e-4, atol=2e-4, err_msg=key)
+
+
+def test_slice_path_vertices_match(both_renders):
+    got, want = both_renders
+    np.testing.assert_allclose(float(got["n_path_vertices"]),
+                               float(want["n_path_vertices"]), rtol=1e-6)
+    assert float(got["n_lane_slots"]) == float(want["n_lane_slots"]) == 32 * 32 * 4 * 2
+
+
+def test_progressive_accumulation_is_exact():
+    r = _setup(Renderer)
+    r.render(n_samples=1, max_depth=3)
+    r.render(n_samples=1, max_depth=3)
+    split = {k: v.clone() for k, v in r.layers.items()}
+    r.init_render_states()
+    r.render(n_samples=2, max_depth=3)
+    for k in LAYERS + ("n_path_vertices",):
+        assert torch.equal(split[k], r.layers[k]), k
+    assert int(r.sample_count.min()) == int(r.sample_count.max()) == 2
+
+
+def test_get_layer_and_envelope():
+    from fredholm_tpu_torch.fused import kernels
+
+    r = _setup(Renderer)
+    r.set_bg_color([0.2, 0.3, 0.4])
+    r.render(n_samples=1, max_depth=2)
+    assert r.get_layer("beauty").shape == (32, 32, 3)
+    assert r.get_layer("depth").shape == (32, 32, 1)
+    # the CPU twins take every lobe; the CUDA kernel raises before launch
+    scene = cornell_box()
+    scene.materials[0].specular = 0.5
+    r.set_scene(scene)
+    assert r._lobes == ("specular", "diffuse_r")
+    cfg = kernels.pf.FusedConfig(32, 32, 2, 2, r._lobes)
+    with pytest.raises(NotImplementedError, match="lobes"):
+        kernels._lobe_mask(cfg)
+    scene = cornell_box()
+    scene.materials[1].thin_film_thickness = 300.0
+    with pytest.raises(NotImplementedError, match="thin-film"):
+        Renderer(8, 8).set_scene(scene)
+
+
+def test_port_never_imports_jax_or_the_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import fredholm_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'fredholm_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'fredholm_tpu' or k.startswith('fredholm_tpu.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
