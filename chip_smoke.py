@@ -18,6 +18,20 @@ exits non-zero without the final `ok` line:
 5. metric 1: Cornell 512^2, 16 spp, depth 5 after 2 warm-up spp, with the
    launch counts of that run, and per-kernel times vs the plain twins
 6. the kernel table, the card line, then {"ok": true, "device": ...}
+   (printed last, after phases 7-9)
+7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
+   through Renderer(device="cuda"); clustered closest-hit / any-hit and
+   slot-fetch kernels vs their twins
+   at the hosek-sweep shapes (512x288 primaries, one bounce's closest and
+   occlusion blocks), a two-instance non-identity TLAS with 2^18 rays,
+   and the shading kernels vs their twins on the sweep's planes (Hosek
+   sky, sun block, metal/specular lobes, split occlusion, slot planes)
+8. the goldens terrain_cluster, hosek_sun and metal_row through
+   Renderer(device="cuda"), scored against tests/golden/*.npz
+9. metric 2: the hosek sweep at 512x288, 8 spp, depth 5 after 2 warm-up
+   spp (bench.py:170-182), with its launch counts, and per-kernel times
+   vs the plain twins at its shapes, beside each kernel's bound, and the
+   device's busy share from torch.profiler
 """
 
 from __future__ import annotations
@@ -33,16 +47,27 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # kernel-vs-twin tolerances. The kernels build with -fmad=false and no fast
-# math, but sin/cos/tan/sqrt/rsqrt differ by a few ulp between nvcc's
-# device library and the torch ops the twins run, and a few ulp can flip a
-# branch (RR, a shared quad edge), so masks are compared by agreement
-# fraction and values only on lanes whose masks agree.
+# math, but sin/cos/tan/exp/sqrt differ by a few ulp between nvcc's device
+# library and the torch ops the twins run, and a few ulp can flip a branch
+# (RR, a shared quad edge), so masks are compared by agreement fraction and
+# values only on lanes whose masks agree.
 MASK_AGREE_MIN = 0.999
 VALUE_RTOL = 1e-4
 VALUE_ATOL = 1e-4
 VALUE_AGREE_MIN = 0.999
-DENSE_REL_TOL = 1e-5
+TRACE_REL_TOL = 1e-5
 TIE_REL = 1e-6
+
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# float operations a test takes: ray-box slab (6 sub, 6 mul, 9 min/max),
+# Moller-Trumbore (cross products, dots, one divide, compares)
+SLAB_OPS = 21
+TRI_OPS = 40
+# float operations a lane of each shading stage takes (counted from the
+# bodies, hashing included; all three stages are bound by their bytes)
+STAGE_OPS = {"raygen": 300, "mega": 1500, "final_resolve": 150}
 
 
 def card_line() -> str:
@@ -68,7 +93,29 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def compare_dense(name, kern, twin, m):
+def nbytes(*ts) -> int:
+    """Bytes of the given tensors (None and non-tensors count 0)."""
+    import torch
+
+    total = 0
+    for t in ts:
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, what sets it) from the bytes moved and float ops done."""
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_o = n_ops / PEAK_FP32_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def compare_trace(name, kern, twin, m, tag="[2]"):
     """Hit masks by agreement; prim equal except near-ties; t/u/v close."""
     import torch
 
@@ -86,25 +133,25 @@ def compare_dense(name, kern, twin, m):
     rel_t = ((kern["t"] - twin["t"]).abs() / twin["t"].abs().clamp(min=1.0))
     rel_t = torch.where(same | (~hk & ~ht), rel_t, torch.zeros_like(rel_t)).max().item()
     n_bad_prim = int((diff & ~tie).sum().item())
-    print(f"[2] {name}: rays={m} hit-mask agreement={agree:.7f} "
+    print(f"{tag} {name}: rays={m} hit-mask agreement={agree:.7f} "
           f"hits={int(both.sum())} prim-diff={int(diff.sum())} (near-tie "
           f"{int(tie.sum())}) max|dt|={errs['t']:.3g} rel_t={rel_t:.3g} "
           f"max|du|={errs['u']:.3g} max|dv|={errs['v']:.3g}")
     if agree < 1.0 - 1e-4 or n_bad_prim > max(1, m // 100000):
-        raise AssertionError(f"{name}: dense kernel disagrees with its twin")
-    if rel_t > DENSE_REL_TOL or max(errs["u"], errs["v"]) > DENSE_REL_TOL:
-        raise AssertionError(f"{name}: dense kernel t/u/v off by more than {DENSE_REL_TOL}")
+        raise AssertionError(f"{name}: trace kernel disagrees with its twin")
+    if rel_t > TRACE_REL_TOL or max(errs["u"], errs["v"]) > TRACE_REL_TOL:
+        raise AssertionError(f"{name}: trace kernel t/u/v off by more than {TRACE_REL_TOL}")
     return max(errs.values())
 
 
-def compare_planes(name, kern, twin, mask_rows=()):
+def compare_planes(name, kern, twin, mask_rows=(), tag="[3]"):
     """Packed planes [R, M]: mask rows (x > 0) by lane agreement, then all
     rows on agreeing lanes within rtol/atol. Returns max |error| there."""
     import torch
 
     if kern.dtype != torch.float32:
         eq = (kern == twin).float().mean().item()
-        print(f"[3] {name}: exact-equal fraction={eq:.7f}")
+        print(f"{tag} {name}: exact-equal fraction={eq:.7f}")
         if eq != 1.0:
             raise AssertionError(f"{name}: integer planes differ")
         return 0.0
@@ -115,13 +162,47 @@ def compare_planes(name, kern, twin, mask_rows=()):
     close = torch.isclose(kern, twin, rtol=VALUE_RTOL, atol=VALUE_ATOL, equal_nan=True)
     lane_ok = close.all(dim=0) & lanes
     value_agree = lane_ok.float().sum().item() / max(lanes.float().sum().item(), 1.0)
-    err = torch.where(lanes[None] & torch.isfinite(kern) & torch.isfinite(twin),
-                      (kern - twin).abs(), torch.zeros_like(kern)).max().item()
-    print(f"[3] {name}: mask agreement={mask_agree:.7f} value agreement="
-          f"{value_agree:.7f} max|err| on agreeing lanes={err:.3g}")
+    diff = torch.where(lanes[None] & torch.isfinite(kern) & torch.isfinite(twin),
+                       (kern - twin).abs(), torch.zeros_like(kern))
+    err = diff.max().item()
+    rel = (diff / twin.abs().clamp(min=1.0)).max().item()
+    print(f"{tag} {name}: mask agreement={mask_agree:.7f} value agreement="
+          f"{value_agree:.7f} max|err| on agreeing lanes={err:.3g} (relative {rel:.3g})")
     if mask_agree < MASK_AGREE_MIN or value_agree < VALUE_AGREE_MIN:
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     return err
+
+
+def compare_stages(tag, cfg, pf, kernels, sv, usv, dev, n_spp, trace_fn):
+    """raygen, mega at d = 0 and d = 1 and final, kernel vs twin on the
+    same inputs; trace_fn(rays, d) gives a stage's Traced (kernel traces).
+    Returns {kernel name: max error}."""
+    n = cfg.width * cfg.height
+    k_st, k_si, k_r = kernels.raygen(cfg, sv, usv, n_spp)
+    t_st, t_si, t_r = pf.raygen_twin(cfg, sv, usv, n_spp)
+    res = {"raygen": max(compare_planes("raygen state", k_st, t_st, [pf.ST_ALIVE], tag),
+                         compare_planes("raygen sample_idx", k_si, t_si, tag=tag),
+                         compare_planes("raygen rays", k_r, t_r, [6], tag))}
+    e = []
+    st_in, r_in, pend = k_st, k_r, None
+    for d in (0, 1):
+        tr = trace_fn(r_in, d)
+        ko = kernels.mega(cfg, d, sv, usv, dev, n_spp, k_si, st_in, r_in, pend, tr)
+        to = pf.mega_twin(cfg, d, sv, usv, dev, n_spp, k_si, st_in, r_in, pend, tr)
+        e.append(compare_planes(f"mega d={d} state", ko[0], to[0], [pf.ST_ALIVE], tag))
+        for b, blk in enumerate(cfg.blocks):
+            e.append(compare_planes(f"mega d={d} rays[{blk}]", ko[1][:, b * n:(b + 1) * n],
+                                    to[1][:, b * n:(b + 1) * n], [6], tag))
+        e.append(compare_planes(f"mega d={d} pending", ko[2], to[2], tag=tag))
+        if d == 0:
+            e.append(compare_planes("mega d=0 aov", ko[3], to[3], tag=tag))
+        st_in, r_in, pend = ko[0], ko[1], ko[2]
+    res["mega"] = max(e)
+    tr = trace_fn(r_in, -1)
+    k_rad = kernels.final(cfg, sv, dev, st_in, r_in, pend, tr)
+    t_rad = pf.final_twin(cfg, sv, dev, st_in, r_in, pend, tr)
+    res["final_resolve"] = compare_planes("final radiance", k_rad, t_rad, tag=tag)
+    return res
 
 
 def soup(n_tris: int, n_rays: int, seed: int, device):
@@ -159,7 +240,102 @@ def soup(n_tris: int, n_rays: int, seed: int, device):
             torch.as_tensor(np.ascontiguousarray(rays), device=device))
 
 
+def instanced_case(n_rays: int, device):
+    """Two non-identity instances of one sphere BLAS (tests/test_bvh.py:
+    219-275) and rays toward them, with dead lanes and finite tmax."""
+    import torch
+
+    from fredholm_tpu_torch.accel.bvh import build_bvh
+    from fredholm_tpu_torch.accel.cluster import build_tlas, extract_hierarchy
+    from fredholm_tpu_torch.accel.clustered import prepare_clustered
+    from fredholm_tpu_torch.scene.procedural import uv_sphere
+
+    v, _, _, f = uv_sphere([0, 0, 0], 1.0, n_theta=32, n_phi=64)
+    v0 = v[f[:, 0]]
+    e1 = v[f[:, 1]] - v0
+    e2 = v[f[:, 2]] - v0
+    lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    h = extract_hierarchy(build_bvh(lo, hi), v0, e1, e2)
+    m_a = np.eye(4, dtype=np.float32)
+    m_a[:3, 3] = [-1.6, 0.0, 0.0]
+    m_b = np.diag([0.5, 0.5, 0.5, 1.0]).astype(np.float32)
+    m_b[:3, 3] = [1.6, 0.3, 0.0]
+    tlas = build_tlas([h], [(0, m_a), (0, m_b)])
+    assert not tlas.inst_identity
+    rng = np.random.default_rng(5)
+    o = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.normal(size=(n_rays, 3)).astype(np.float32) * 0.8
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(n_rays, 1e9, np.float32)
+    tmax[rng.uniform(size=n_rays) < 0.1] = -1.0
+    short = rng.uniform(size=n_rays) < 0.1
+    tmax[short] = rng.uniform(0.5, 4.0, short.sum()).astype(np.float32)
+    rays = np.concatenate([o.T, d.T, tmax[None]]).astype(np.float32)
+    return (prepare_clustered(tlas, device), np.asarray(tlas.blocks[9]),
+            torch.as_tensor(np.ascontiguousarray(rays), device=device))
+
+
+def score_golden(tag, name, img, launches, want_shape):
+    from fredholm_tpu_torch.utils.ssim import ssim
+
+    golden = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))["image"]
+    a = np.clip(golden.astype(np.float32), 0.0, 1.0)
+    b = np.clip(img, 0.0, 1.0)
+    score = ssim(a, b)
+    mean_rel = abs(float(b.mean()) - float(a.mean())) / float(a.mean())
+    print(f"{tag} golden {name}: SSIM={score:.5f} mean={b.mean():.5f} "
+          f"golden mean={a.mean():.5f} rel={mean_rel:.5f} finite={np.isfinite(img).all()} "
+          f"launches={launches}")
+    if not (np.isfinite(img).all() and img.shape == want_shape):
+        raise AssertionError(f"golden {name} render is not a finite {want_shape} image")
+    if score < 0.98 or mean_rel > 0.02:
+        raise AssertionError(f"golden {name} mismatch: SSIM {score:.4f}, mean rel {mean_rel:.4f}")
+    twins = {k: v for k, v in launches.items() if k.endswith("_twin") and v}
+    if twins:
+        raise AssertionError(f"twins ran on the CUDA main path: {twins}")
+
+
+def timed_metric(r, spp, depth, build):
+    """spp calls of render(1) after 2 warm-up spp; returns (path vertices
+    in float64, seconds, launches of the timed run)."""
+    import torch
+
+    r.render(n_samples=2, max_depth=depth)  # warm-up
+    torch.cuda.synchronize()
+    per_call = []
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for _ in range(spp):
+        # zero the float32 lifetime counter so each call's count is exact
+        r.layers["n_path_vertices"] = torch.zeros_like(r.layers["n_path_vertices"])
+        r.render(n_samples=1, max_depth=depth)
+        per_call.append(r.layers["n_path_vertices"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    pv = float(np.sum([float(x) for x in per_call], dtype=np.float64))
+    return pv, seconds, launches
+
+
+def time_pairs(tag, pairs, reps):
+    """{name: (kernel ms, twin ms)} in turns twin, kernel, kernel, twin."""
+    times = {}
+    for name, (kf, tf) in pairs.items():
+        kr, tr = reps.get(name, (20, 3))
+        p1 = cuda_ms(tf, tr)
+        k1 = cuda_ms(kf, kr)
+        k2 = cuda_ms(kf, kr)
+        p2 = cuda_ms(tf, tr)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"{tag} {name}: kernel {times[name][0]:.4f} ms, twin {times[name][1]:.4f} ms "
+              f"(turns: twin {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, twin {p2:.4f})")
+    return times
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     # ---- 0: card
     card = card_line()
     print(f"[0] card: {card}")
@@ -170,29 +346,38 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     import fredholm_tpu_torch as ft
     from fredholm_tpu_torch import _build
-    from fredholm_tpu_torch.accel import dense
-    from fredholm_tpu_torch.fused import kernels
+    from fredholm_tpu_torch.accel import clustered, dense
+    from fredholm_tpu_torch.fused import kernels, slot_fetch
     from fredholm_tpu_torch.fused import pt_fused as pf
     from fredholm_tpu_torch.scene.device import build_device_scene
-    from fredholm_tpu_torch.utils.ssim import ssim
+    from fredholm_tpu_torch.scene.procedural import (
+        hosek_sweep_scene,
+        sphere_array_test,
+        terrain,
+    )
 
     dev = torch.device("cuda")
     print(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    phase_s = {}
+
+    def phase_done(k, t0):
+        phase_s[k] = time.perf_counter() - t0
+        print(f"[{k}] phase seconds: {phase_s[k]:.1f}")
 
     # ---- 1: build
     t0 = time.perf_counter()
     _build.lib()
-    build_s = time.perf_counter() - t0
-    spills = {k: v for k, v in _build.BUILD_INFO.get("ptxas", {}).items()}
-    print(f"[1] kernels built and loaded in {build_s:.1f} s "
-          f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.1f} s)")
-    for name, info in spills.items():
+    print(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"(parallel nvcc + link {_build.BUILD_INFO.get('seconds', 0.0):.1f} s)")
+    for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
         print(f"[1] ptxas {name}: {info}")
+    phase_done(1, t0)
 
     results = {}
 
     # ---- 2: dense closest-hit vs twin
+    t0 = time.perf_counter()
     W = H = 512
     n = W * H
     scene_dev = build_device_scene(ft.cornell_box(), dev)
@@ -208,56 +393,32 @@ def main() -> None:
 
     state0, sidx, rays0 = kernels.raygen(cfg, sv, usv, n_spp)
     hits0 = dense.intersect_closest(tri, rays0, n)
-    state1, rays1, pend1, aov0 = kernels.mega(cfg, 0, sv, usv, scene_dev, n_spp, sidx,
-                                              state0, rays0, hits0, None)
+    _, rays1, _, _ = kernels.mega(cfg, 0, sv, usv, scene_dev, n_spp, sidx, state0, rays0,
+                                  None, pf.Traced(hits0))
     m1 = rays1.shape[1]
     kh = dense.intersect_closest(tri, rays1, m1)
     th = dense.intersect_closest_twin(tri, rays1, m1)
     torch.cuda.synchronize()
-    err_c = compare_dense("cornell 4x512^2", kh, th, m1)
+    err_c = compare_trace("cornell 4x512^2", kh, th, m1)
     s_tri, s_rays = soup(1024, 1 << 20, 7, dev)
-    err_s = compare_dense("soup 1024 tris", dense.intersect_closest(s_tri, s_rays, 1 << 20),
+    err_s = compare_trace("soup 1024 tris", dense.intersect_closest(s_tri, s_rays, 1 << 20),
                           dense.intersect_closest_twin(s_tri, s_rays, 1 << 20), 1 << 20)
     results["dense_closest"] = max(err_c, err_s)
+    phase_done(2, t0)
 
-    # ---- 3: shading kernels vs twins, same inputs
-    k_st, k_si, k_r = kernels.raygen(cfg, sv, usv, n_spp)
-    t_st, t_si, t_r = pf.raygen_twin(cfg, sv, usv, n_spp)
-    e = [compare_planes("raygen state", k_st, t_st, [pf.ST_ALIVE]),
-         compare_planes("raygen sample_idx", k_si, t_si),
-         compare_planes("raygen rays", k_r, t_r, [6])]
-    results["raygen"] = max(e)
+    # ---- 3: shading kernels vs twins, same inputs (dense Cornell)
+    t0 = time.perf_counter()
 
-    hits = dense.intersect_closest(tri, k_r, n)
-    e = []
-    outs = {}
-    for d in (0, 1):
-        pend = None if d == 0 else outs[0][0][2]
-        st_in, r_in = (k_st, k_r) if d == 0 else (outs[0][0][0], outs[0][0][1])
-        if d == 1:
-            hits = dense.intersect_closest(tri, r_in, r_in.shape[1])
-        ko = kernels.mega(cfg, d, sv, usv, scene_dev, n_spp, k_si, st_in, r_in, hits, pend)
-        to = pf.mega_twin(cfg, d, sv, usv, scene_dev, n_spp, k_si, st_in, r_in, hits, pend)
-        outs[d] = (ko, to, r_in, hits)
-        nb = len(cfg.blocks)
-        ray_rows = [6]
-        e.append(compare_planes(f"mega d={d} state", ko[0], to[0], [pf.ST_ALIVE]))
-        for b in range(nb):
-            e.append(compare_planes(f"mega d={d} rays[{cfg.blocks[b]}]",
-                                    ko[1][:, b * n:(b + 1) * n], to[1][:, b * n:(b + 1) * n],
-                                    ray_rows))
-        e.append(compare_planes(f"mega d={d} pending", ko[2], to[2]))
-        if d == 0:
-            e.append(compare_planes("mega d=0 aov", ko[3], to[3]))
-    results["mega"] = max(e)
+    def dense_traced(rays, d):
+        m = rays.shape[1] if d >= 0 else (len(cfg.blocks) - 1) * n
+        return pf.Traced(dense.intersect_closest(tri, rays, m))
 
-    ko1 = outs[1][0]
-    fh = dense.intersect_closest(tri, ko1[1], (len(cfg.blocks) - 1) * n)
-    k_rad = kernels.final(cfg, sv, scene_dev, ko1[0], ko1[1], fh, ko1[2])
-    t_rad = pf.final_twin(cfg, sv, scene_dev, ko1[0], ko1[1], fh, ko1[2])
-    results["final_resolve"] = compare_planes("final radiance", k_rad, t_rad)
+    results.update(compare_stages("[3]", cfg, pf, kernels, sv, usv, scene_dev, n_spp,
+                                  dense_traced))
+    phase_done(3, t0)
 
     # ---- 4: the golden through the user entry point
+    t0 = time.perf_counter()
     r = ft.Renderer(64, 64, device="cuda")
     r.set_scene(ft.cornell_box())
     r.camera.origin = np.asarray([0.0, 1.0, 0.6], np.float32)
@@ -266,112 +427,348 @@ def main() -> None:
     r.render(n_samples=32, max_depth=4)
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
-    img = r.get_layer("beauty")
-    golden = np.load(os.path.join(ROOT, "tests", "golden", "cornell.npz"))["image"]
-    a = np.clip(golden.astype(np.float32), 0.0, 1.0)
-    b = np.clip(img, 0.0, 1.0)
-    score = ssim(a, b)
-    mean_rel = abs(float(b.mean()) - float(a.mean())) / float(a.mean())
-    print(f"[4] golden cornell 64^2 32spp d4: SSIM={score:.5f} mean={b.mean():.5f} "
-          f"golden mean={a.mean():.5f} rel={mean_rel:.5f} finite={np.isfinite(img).all()} "
-          f"launches={counts}")
-    if not (np.isfinite(img).all() and img.shape == (64, 64, 3)):
-        raise AssertionError("golden render is not a finite 64x64x3 image")
-    if score < 0.98 or mean_rel > 0.02:
-        raise AssertionError(f"golden mismatch: SSIM {score:.4f}, mean rel {mean_rel:.4f}")
+    score_golden("[4]", "cornell", r.get_layer("beauty"), counts, (64, 64, 3))
     if counts.get("dense_closest", 0) != (4 + 1) * 32:
         raise AssertionError(f"dense kernel launched {counts.get('dense_closest')} times")
     for k in ("raygen", "mega", "final"):
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
-    twins = {k: v for k, v in counts.items() if k.endswith("_twin") and v}
-    if twins:
-        raise AssertionError(f"twins ran on the CUDA main path: {twins}")
+    phase_done(4, t0)
 
     # ---- 5: metric 1 (bench.py metric 1: Cornell 512^2, 16 spp, depth 5)
+    t0 = time.perf_counter()
     spp, depth = 16, 5
     r = ft.Renderer(512, 512, device="cuda")
     r.set_scene(ft.cornell_box())
     r.camera.origin = np.asarray([0.0, 1.0, 0.6], np.float32)
     r.camera._update_transform()
-    r.render(n_samples=2, max_depth=depth)  # warm-up
-    torch.cuda.synchronize()
-    per_call = []
-    _build.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    for _ in range(spp):
-        # zero the float32 lifetime counter so each call's count is exact
-        r.layers["n_path_vertices"] = torch.zeros_like(r.layers["n_path_vertices"])
-        r.render(n_samples=1, max_depth=depth)
-        per_call.append(r.layers["n_path_vertices"])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    pv = float(np.sum([float(x) for x in per_call], dtype=np.float64))
+    pv, seconds, launches1 = timed_metric(r, spp, depth, _build)
     beauty = r.get_layer("beauty")
     if not (np.isfinite(beauty).all() and 0.01 < beauty.mean() < 10.0):
         raise AssertionError(f"metric-1 image is off: mean {beauty.mean()}")
-    if launches.get("dense_closest", 0) != (depth + 1) * spp:
-        raise AssertionError(f"dense kernel launched {launches.get('dense_closest')} "
+    if launches1.get("dense_closest", 0) != (depth + 1) * spp:
+        raise AssertionError(f"dense kernel launched {launches1.get('dense_closest')} "
                              f"times, expected {(depth + 1) * spp}")
     for k in ("raygen", "mega", "final"):
-        if launches.get(k, 0) <= 0:
+        if launches1.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
-    twins = {k: v for k, v in launches.items() if k.endswith("_twin") and v}
+    twins = {k: v for k, v in launches1.items() if k.endswith("_twin") and v}
     if twins:
         raise AssertionError(f"twins ran on the CUDA main path: {twins}")
-    metric = {
+    print(json.dumps({
         "metric": "cornell_512x512_16spp_depth5",
         "mpath_vertices_per_s": pv / seconds / 1e6,
         "path_vertices": pv,
         "seconds": seconds,
         "beauty_mean": float(beauty.mean()),
         "card": card,
-        "launches": launches,
-    }
-    print(json.dumps(metric))
+        "launches": launches1,
+    }))
 
-    # per-kernel times at main-path shapes (CUDA events), in turns
+    # per-kernel times at metric-1 shapes (CUDA events), in turns
     st, si, rays = kernels.raygen(cfg, sv, usv, n_spp)
     h = dense.intersect_closest(tri, rays, n)
-    st, rays, pend, _ = kernels.mega(cfg, 0, sv, usv, scene_dev, n_spp, si, st, rays, h, None)
-    h4 = dense.intersect_closest(tri, rays, rays.shape[1])
-    hf = dense.intersect_closest(tri, rays, (len(cfg.blocks) - 1) * n)
-    pairs = {
+    st, rays, pend, _ = kernels.mega(cfg, 0, sv, usv, scene_dev, n_spp, si, st, rays, None,
+                                     pf.Traced(h))
+    h4 = pf.Traced(dense.intersect_closest(tri, rays, rays.shape[1]))
+    hf = pf.Traced(dense.intersect_closest(tri, rays, (len(cfg.blocks) - 1) * n))
+    times1 = time_pairs("[5]", {
         "dense_closest": (lambda: dense.intersect_closest(tri, rays, rays.shape[1]),
                           lambda: dense.intersect_closest_twin(tri, rays, rays.shape[1])),
         "raygen": (lambda: kernels.raygen(cfg, sv, usv, n_spp),
                    lambda: pf.raygen_twin(cfg, sv, usv, n_spp)),
-        "mega": (lambda: kernels.mega(cfg, 1, sv, usv, scene_dev, n_spp, si, st, rays, h4, pend),
-                 lambda: pf.mega_twin(cfg, 1, sv, usv, scene_dev, n_spp, si, st, rays, h4, pend)),
-        "final_resolve": (lambda: kernels.final(cfg, sv, scene_dev, st, rays, hf, pend),
-                          lambda: pf.final_twin(cfg, sv, scene_dev, st, rays, hf, pend)),
+        "mega": (lambda: kernels.mega(cfg, 1, sv, usv, scene_dev, n_spp, si, st, rays, pend, h4),
+                 lambda: pf.mega_twin(cfg, 1, sv, usv, scene_dev, n_spp, si, st, rays, pend, h4)),
+        "final_resolve": (lambda: kernels.final(cfg, sv, scene_dev, st, rays, pend, hf),
+                          lambda: pf.final_twin(cfg, sv, scene_dev, st, rays, pend, hf)),
+    }, {})
+    live = int((rays[6] > 0).sum())
+    bounds1 = {
+        "dense_closest": bound(nbytes(rays, tri) + 16 * rays.shape[1],
+                               live * tri.shape[1] * TRI_OPS),
+        "raygen": bound(nbytes(n_spp) + n * (4 * pf.ST_ROWS + 8 + 4 * pf.RAY_ROWS),
+                        n * STAGE_OPS["raygen"]),
+        "mega": bound(nbytes(st, si, n_spp, rays, pend, h4.hits, scene_dev["fused_table"])
+                      + nbytes(st, pend, rays), n * STAGE_OPS["mega"]),
+        "final_resolve": bound(nbytes(st, pend, rays[:, :3 * n], hf.hits) + 12 * n,
+                               n * STAGE_OPS["final_resolve"]),
     }
-    times = {}
-    for name, (kf, tf) in pairs.items():
-        p1 = cuda_ms(tf, 3)
-        k1 = cuda_ms(kf, 20)
-        k2 = cuda_ms(kf, 20)
-        p2 = cuda_ms(tf, 3)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[5] {name}: kernel {times[name][0]:.4f} ms, twin {times[name][1]:.4f} ms "
-              f"(turns: twin {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, twin {p2:.4f})")
+    for k, (ms, by) in bounds1.items():
+        print(f"[5] {k}: bound {ms:.4f} ms ({by})")
+    phase_done(5, t0)
 
-    # ---- 6: records
+    # ---- 7: the hosek-sweep scene (bench.py metric 2); B4 / B5 / B6 vs
+    # twins at its shapes
+    t0 = time.perf_counter()
+    SW, SH = 512, 288
+    ns = SW * SH
+    sweep = hosek_sweep_scene()
+
+    def sweep_renderer(width, height):
+        r = ft.Renderer(width, height, device="cuda")
+        r.set_scene(sweep)
+        r.camera.origin = np.asarray([0.0, 2.0, 8.0], np.float32)
+        r.camera.look_around(0.0, 0.0)
+        r.camera._update_transform()
+        r.set_directional_light([2.0, 1.9, 1.8], [0.35, 0.75, 0.3], angle=0.5)
+        r.load_arhosek_sky(turbidity=3.0, albedo=0.3)
+        return r
+
+    rs = sweep_renderer(SW, SH)
+    sweep_dev = rs._dev
+    c = sweep_dev["clusters"]
+    print(f"[7] hosek sweep: {sweep.n_faces()} faces, {c['sc_aabb'].shape[1]} superclusters, "
+          f"{c['blocks'].shape[1] // 128} clusters, scene upload {time.perf_counter() - t0:.1f} s")
+    p2 = rs._params(5)
+    cfg2 = pf.make_config(sweep_dev, p2)
+    assert cfg2.has_dl and cfg2.sky_mode == pf.SKY_HOSEK
+    assert cfg2.lobes_on == ("metal", "specular", "diffuse_r"), cfg2.lobes_on
+    sv2, usv2 = pf.pack_scalars(p2, ns, dev)
+    n_spp2 = torch.full((ns,), 3, dtype=torch.int64, device=dev)
+    n_occ = len(cfg2.occ_blocks(True))
+    nb2 = len(cfg2.blocks)
+    row9 = c["blocks"][9].to(torch.int64)
+
+    def check_trace(name, rays_view, stats_key=None):
+        kh = clustered.intersect_closest_clustered(c, rays_view)
+        th = clustered.intersect_closest_twin(c, rays_view)
+        torch.cuda.synchronize()
+        e = compare_trace(name, kh, th, rays_view.shape[1], "[7]")
+        hit = kh["prim"] >= 0
+        ok = (row9[kh["slot"][hit].to(torch.int64)].to(torch.int32) == kh["prim"][hit]).all()
+        if not bool(ok) or not bool((kh["slot"][~hit] == -1).all()):
+            raise AssertionError(f"{name}: slot does not name the hit prim")
+        return kh, e
+
+    st0, si0, r0 = kernels.raygen(cfg2, sv2, usv2, n_spp2)
+    kh0, e_p = check_trace("sweep primaries 512x288", r0)
+    geom_k = slot_fetch.fetch_geom_by_slot(sweep_dev["slot_attrs"], kh0["slot"])
+    geom_t = slot_fetch.fetch_twin(sweep_dev["slot_attrs"], kh0["slot"])
+    if not torch.equal(geom_k, geom_t):
+        raise AssertionError("slot fetch kernel differs from its twin")
+    print(f"[7] slot fetch {ns} lanes: bit-equal to its twin")
+    results["slot_fetch"] = 0.0
+    _, r1, _, _ = kernels.mega(cfg2, 0, sv2, usv2, sweep_dev, n_spp2, si0, st0, r0, None,
+                               pf.Traced(kh0, None, geom_k))
+    occ_view = r1[:, :n_occ * ns]
+    ok_ = clustered.intersect_any_clustered(c, occ_view)
+    ot_ = clustered.intersect_any_twin(c, occ_view)
+    agree = (ok_ == ot_).float().mean().item()
+    print(f"[7] sweep bounce occlusion blocks {cfg2.occ_blocks(True)}: rays={occ_view.shape[1]} "
+          f"occluded={int(ok_.sum())} agreement={agree:.7f}")
+    if agree < 1.0 - 1e-4:
+        raise AssertionError("clustered any-hit kernel disagrees with its twin")
+    rad_view = r1[:, n_occ * ns:nb2 * ns]
+    _, e_b = check_trace("sweep bounce closest block", rad_view)
+    ic, i_row9, i_rays = instanced_case(1 << 18, dev)
+    ikh = clustered.intersect_closest_clustered(ic, i_rays)
+    ith = clustered.intersect_closest_twin(ic, i_rays)
+    e_i = compare_trace("two-instance TLAS", ikh, ith, 1 << 18, "[7]")
+    if not torch.equal(ikh["inst"][ikh["prim"] >= 0], ith["inst"][ikh["prim"] >= 0]):
+        raise AssertionError("instance ids differ between kernel and twin")
+    i_hit = ikh["prim"] >= 0
+    i9 = torch.as_tensor(i_row9, device=dev).to(torch.int64)
+    if not bool((i9[ikh["slot"][i_hit].to(torch.int64)].to(torch.int32) == ikh["prim"][i_hit]).all()):
+        raise AssertionError("two-instance TLAS: slot does not name the hit prim")
+    iok = clustered.intersect_any_clustered(ic, i_rays)
+    iot = clustered.intersect_any_twin(ic, i_rays)
+    i_agree = (iok == iot).float().mean().item()
+    print(f"[7] two-instance any-hit: rays={1 << 18} agreement={i_agree:.7f} "
+          f"any==closest-hit {(iok == i_hit).float().mean().item():.7f} "
+          f"instances hit {sorted(set(ikh['inst'][i_hit].tolist()))}")
+    if i_agree < 1.0 - 1e-4:
+        raise AssertionError("two-instance any-hit kernel disagrees with its twin")
+    results["clustered_closest"] = max(e_p, e_b, e_i)
+    results["clustered_any"] = 0.0
+
+    def sweep_traced(rays, d):
+        if d == 0:
+            return pf.trace_stage(cfg2, sweep_dev, rays, ns, 1, 0)
+        return pf.trace_stage(cfg2, sweep_dev, rays, ns, nb2 if d > 0 else nb2 - 1, n_occ)
+
+    sres = compare_stages("[7]", cfg2, pf, kernels, sv2, usv2, sweep_dev, n_spp2,
+                          sweep_traced)
+    for k, v in sres.items():
+        results[k] = max(results[k], v)
+    phase_done(7, t0)
+
+    # ---- 8: goldens of the clustered path through the user entry point
+    t0 = time.perf_counter()
+
+    def g_terrain_cluster():
+        r = ft.Renderer(48, 48, device="cuda")
+        r.set_scene(terrain(n=64, size=8.0, amp=1.2))
+        r.camera.origin = np.asarray([0.0, 2.6, 5.5], np.float32)
+        r.camera.look_around(0.0, -0.35)
+        r.camera._update_transform()
+        r.set_directional_light((2.0, 1.9, 1.8), (0.35, 0.75, 0.3), angle=0.5)
+        r.load_arhosek_sky(3.0, 0.3)
+        return r, dict(n_samples=6, max_depth=3)
+
+    def g_hosek_sun():
+        r = ft.Renderer(64, 64, device="cuda")
+        r.set_scene(sphere_array_test("specular_roughness", [0.1, 0.5], spacing=1.2))
+        r.camera.origin = np.asarray([0.0, 0.8, 2.5], np.float32)
+        r.camera._update_transform()
+        r.set_directional_light((5, 5, 5), (0.4, 1.0, 0.3), angle=1.0)
+        r.load_arhosek_sky(3.0, 0.3)
+        r.set_sky_intensity(0.05)
+        return r, dict(n_samples=8, max_depth=3)
+
+    def g_metal_row():
+        r = ft.Renderer(64, 64, device="cuda")
+        r.set_scene(sphere_array_test("metalness", [0.0, 0.5, 1.0], spacing=1.05))
+        r.camera.origin = np.asarray([0.0, 0.8, 2.2], np.float32)
+        r.camera._update_transform()
+        r.set_bg_color((0.6, 0.7, 0.9))
+        return r, dict(n_samples=16, max_depth=3)
+
+    for name, setup in (("terrain_cluster", g_terrain_cluster), ("hosek_sun", g_hosek_sun),
+                        ("metal_row", g_metal_row)):
+        r, kw = setup()
+        if "clusters" not in r._dev:
+            raise AssertionError(f"golden {name} did not take the clustered path")
+        _build.LAUNCHES.clear()
+        r.render(**kw)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        score_golden("[8]", name, r.get_layer("beauty"), counts, (r.height, r.width, 3))
+        for k in ("clustered_closest", "clustered_any", "slot_fetch", "mega"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"golden {name}: kernel {k} never launched")
+    phase_done(8, t0)
+
+    # ---- 9: metric 2 (bench.py:170-182: hosek sweep 512x288, 8 spp, depth 5)
+    t0 = time.perf_counter()
+    spp2, depth2 = 8, 5
+    pv2, seconds2, launches2 = timed_metric(rs, spp2, depth2, _build)
+    beauty2 = rs.get_layer("beauty")
+    if not (np.isfinite(beauty2).all() and 0.01 < beauty2.mean() < 100.0):
+        raise AssertionError(f"metric-2 image is off: mean {beauty2.mean()}")
+    want = {"clustered_closest": depth2 * spp2, "clustered_any": depth2 * spp2,
+            "slot_fetch": depth2 * spp2, "mega": depth2 * spp2, "raygen": spp2,
+            "final": spp2}
+    got = {k: launches2.get(k, 0) for k in want}
+    twins = {k: v for k, v in launches2.items() if k.endswith("_twin") and v}
+    if got != want or twins or launches2.get("dense_closest"):
+        raise AssertionError(f"metric-2 launches {launches2}, expected {want} and no twins")
+    print(json.dumps({
+        "metric": "hosek_sweep_512x288_8spp_depth5",
+        "mpath_vertices_per_s": pv2 / seconds2 / 1e6,
+        "path_vertices": pv2,
+        "seconds": seconds2,
+        "beauty_mean": float(beauty2.mean()),
+        "card": card,
+        "launches": launches2,
+    }))
+
+    # device busy share over 2 spp of metric 2 (torch.profiler)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # a first session starts the tracer (CUPTI), which takes seconds; the
+    # second one is measured, its wall clock taken inside the session
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        rs.render(n_samples=1, max_depth=depth2)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        rs.render(n_samples=2, max_depth=depth2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = ev.self_cuda_time_total
+        by_kernel[ev.key] = dt / 1e3
+    busy_ms = sum(by_kernel.values())
+    print(f"[9] profiler, 2 spp of metric 2: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, busy share {busy_ms / wall_ms:.4f}")
+    for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[9]   {v:.3f} ms {k[:90]}")
+
+    # per-kernel times at metric-2 shapes (a real bounce's blocks), in turns
+    st, si, rays = kernels.raygen(cfg2, sv2, usv2, n_spp2)
+    tr0 = pf.trace_stage(cfg2, sweep_dev, rays, ns, 1, 0)
+    st, rays, pend, _ = kernels.mega(cfg2, 0, sv2, usv2, sweep_dev, n_spp2, si, st, rays, None, tr0)
+    tr1 = pf.trace_stage(cfg2, sweep_dev, rays, ns, nb2, n_occ)
+    trf = pf.trace_stage(cfg2, sweep_dev, rays, ns, nb2 - 1, n_occ)
+    occ_view = rays[:, :n_occ * ns]
+    rad_view = rays[:, n_occ * ns:nb2 * ns]
+    slots = tr1.hits["slot"]
+    reps = {"clustered_closest": (10, 1), "clustered_any": (10, 1)}
+    times2 = time_pairs("[9]", {
+        "clustered_closest": (lambda: clustered.intersect_closest_clustered(c, rad_view),
+                              lambda: clustered.intersect_closest_twin(c, rad_view)),
+        "clustered_any": (lambda: clustered.intersect_any_clustered(c, occ_view),
+                          lambda: clustered.intersect_any_twin(c, occ_view)),
+        "slot_fetch": (lambda: slot_fetch.fetch_geom_by_slot(sweep_dev["slot_attrs"], slots),
+                       lambda: slot_fetch.fetch_twin(sweep_dev["slot_attrs"], slots)),
+        "raygen": (lambda: kernels.raygen(cfg2, sv2, usv2, n_spp2),
+                   lambda: pf.raygen_twin(cfg2, sv2, usv2, n_spp2)),
+        "mega": (lambda: kernels.mega(cfg2, 1, sv2, usv2, sweep_dev, n_spp2, si, st, rays, pend,
+                                      tr1),
+                 lambda: pf.mega_twin(cfg2, 1, sv2, usv2, sweep_dev, n_spp2, si, st, rays, pend,
+                                      tr1)),
+        "final_resolve": (lambda: kernels.final(cfg2, sv2, sweep_dev, st, rays, pend, trf),
+                          lambda: pf.final_twin(cfg2, sv2, sweep_dev, st, rays, pend, trf)),
+    }, reps)
+    cs, ca = {"slab": 0, "tri": 0}, {"slab": 0, "tri": 0}
+    clustered.intersect_closest_twin(c, rad_view, cs)
+    clustered.intersect_any_twin(c, occ_view, ca)
+    tables = nbytes(*(c[k] for k in clustered._TABLE_KEYS))
+    print(f"[9] tests taken: closest {cs} over {rad_view.shape[1]} rays, any {ca} over "
+          f"{occ_view.shape[1]} rays")
+    bounds2 = {
+        "clustered_closest": bound(nbytes(rad_view) + tables + 24 * rad_view.shape[1],
+                                   cs["slab"] * SLAB_OPS + cs["tri"] * TRI_OPS),
+        "clustered_any": bound(nbytes(occ_view) + tables + occ_view.shape[1],
+                               ca["slab"] * SLAB_OPS + ca["tri"] * TRI_OPS),
+        "slot_fetch": bound(nbytes(slots) + 2 * 4 * slot_fetch.A_USED * slots.shape[0], 0),
+        "raygen": bound(nbytes(n_spp2) + ns * (4 * pf.ST_ROWS + 8 + 4 * pf.RAY_ROWS),
+                        ns * STAGE_OPS["raygen"]),
+        "mega": bound(nbytes(st, si, n_spp2, rays, pend, tr1.hits["t"], tr1.hits["prim"],
+                             tr1.hits["u"], tr1.hits["v"], tr1.occ, tr1.geom)
+                      + nbytes(st, pend, rays), ns * STAGE_OPS["mega"]),
+        "final_resolve": bound(nbytes(st, pend, rays[:, :(nb2 - 1) * ns], trf.occ) + 12 * ns,
+                               ns * STAGE_OPS["final_resolve"]),
+    }
+    for k, (ms, by) in bounds2.items():
+        print(f"[9] {k}: bound {ms:.4f} ms ({by})")
+    phase_done(9, t0)
+
+    # ---- 6: records. dense_closest is timed on metric 1's path, the
+    # others on metric 2's (shading kernels: metric 1's times print in [5])
     src = "fredholm_tpu_torch/csrc/"
     table = [
         ("dense_closest", "dense_closest.cu", "fredholm_tpu/accel/pallas_dense.py:93",
-         "dense_closest"),
-        ("raygen", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "raygen"),
-        ("mega", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega"),
-        ("final_resolve", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "final"),
+         "dense_closest", times1, bounds1, launches1),
+        ("raygen", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "raygen", times2,
+         bounds2, launches2),
+        ("mega", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega", times2, bounds2,
+         launches2),
+        ("final_resolve", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "final", times2,
+         bounds2, launches2),
+        ("clustered_closest", "clustered.cu", "fredholm_tpu/accel/pallas_clustered.py:240",
+         "clustered_closest", times2, bounds2, launches2),
+        ("clustered_any", "clustered.cu", "fredholm_tpu/accel/pallas_clustered.py:240",
+         "clustered_any", times2, bounds2, launches2),
+        ("slot_fetch", "slot_fetch.cu", "fredholm_tpu/fused/slot_fetch.py:76", "slot_fetch",
+         times2, bounds2, launches2),
     ]
     kern_json = [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
-         "launches": int(launches.get(key, 0)), "max_abs_err": results[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, f, rep, key in table
+         "launches": int(lch.get(key, 0)), "max_abs_err": results[name],
+         "ms": tms[name][0], "plain_ms": tms[name][1], "bound_ms": bnd[name][0],
+         "bound_by": bnd[name][1], "library_ms": None}
+        for name, f, rep, key, tms, bnd, lch in table
     ]
+    print(f"[6] phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
+          f"total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kern_json}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels; count their launches.
 
 The sources under csrc/ have a plain `extern "C"` interface. At first use
-they are compiled with nvcc into one shared library under
-build/fredholm_tpu_torch/ (next to the package), named by a hash of the
-sources and flags, and loaded with ctypes. Nothing here runs at import:
-CPU-only installs import the package without nvcc.
+each is compiled by its own nvcc process, all started together, and the
+objects are linked into one shared library under build/fredholm_tpu_torch/
+(next to the package), named by a hash of the sources and flags, and
+loaded with ctypes. Nothing here runs at import: CPU-only installs import
+the package without nvcc.
 
 LAUNCHES counts, per name, the launches each kernel wrapper made and the
 calls of each plain twin. With the loaded library and its build record,
@@ -25,11 +26,11 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "fredholm_tpu_torch")
-SOURCES = ("dense_closest.cu", "shade.cu")
+SOURCES = ("dense_closest.cu", "shade.cu", "clustered.cu", "slot_fetch.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -85,20 +86,30 @@ def build() -> str:
     if os.path.exists(lib_path):
         BUILD_INFO.setdefault("seconds", 0.0)
         return lib_path
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-        os.path.join(CSRC_DIR, s) for s in SOURCES
-    ]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC_DIR, s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s, p.returncode, log) for s, p, log in zip(SOURCES, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{s} ({rc}):\n{log}" for s, rc, log in failed))
+    tmp = f"{lib_path}.{tag}.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, lib_path)
-    log = proc.stdout + proc.stderr
-    BUILD_INFO.update(seconds=seconds, ptxas=_parse_ptxas(log), log=log)
+    log = "".join(logs)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=_parse_ptxas(log), log=log)
     return lib_path
 
 
@@ -112,6 +123,7 @@ class ShadeArgs(ctypes.Structure):
         ("mat_table", ctypes.c_void_p),
         ("light_table", ctypes.c_void_p),
         ("sobol", ctypes.c_void_p),
+        ("lut", ctypes.c_void_p),
         ("n_spp", ctypes.c_void_p),
         ("sample_idx", ctypes.c_void_p),
         ("state_in", ctypes.c_void_p),
@@ -121,12 +133,15 @@ class ShadeArgs(ctypes.Structure):
         ("hit_prim", ctypes.c_void_p),
         ("hit_u", ctypes.c_void_p),
         ("hit_v", ctypes.c_void_p),
+        ("geom", ctypes.c_void_p),
+        ("occ", ctypes.c_void_p),
         ("pending_in", ctypes.c_void_p),
         ("pending_out", ctypes.c_void_p),
         ("rays_out", ctypes.c_void_p),
         ("aov_out", ctypes.c_void_p),
         ("rad_out", ctypes.c_void_p),
         ("rays_in_stride", ctypes.c_longlong),
+        ("hits_m", ctypes.c_longlong),
         ("n", ctypes.c_int),
         ("width", ctypes.c_int),
         ("height", ctypes.c_int),
@@ -136,6 +151,9 @@ class ShadeArgs(ctypes.Structure):
         ("n_mats", ctypes.c_int),
         ("n_lights", ctypes.c_int),
         ("lobe_mask", ctypes.c_int),
+        ("sky_mode", ctypes.c_int),
+        ("has_dl", ctypes.c_int),
+        ("hit_block0", ctypes.c_int),
     ]
 
 
@@ -147,6 +165,13 @@ def lib():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         handle.fh_dense_closest.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
         handle.fh_dense_closest.restype = i
+        for name in ("fh_clustered_closest", "fh_clustered_any"):
+            fn = getattr(handle, name)
+            fn.argtypes = [vp, ll, i, vp, vp, vp, vp, i, i, vp, vp, i, vp, vp, ll,
+                           vp, vp, vp, vp, vp, vp, vp, vp]
+            fn.restype = i
+        handle.fh_slot_fetch.argtypes = [vp, i, vp, ll, vp, vp]
+        handle.fh_slot_fetch.restype = i
         for name in ("fh_raygen", "fh_mega", "fh_final"):
             fn = getattr(handle, name)
             fn.argtypes = [ctypes.POINTER(ShadeArgs), vp]

@@ -3,15 +3,19 @@
 The kernels replace fredholm_tpu/fused/kernels.py `tiled_map` as used by
 `_raygen_tiled`, `_mega_tiled` and `_final_tiled` (pt_fused.py:1331-1384):
 one thread per lane over the packed planes of fused/pt_fused.py. The mega
-kernel also fetches the hit's rows of fused_table / fused_mat_table itself
-(the reference's `_gather_attrs`) and writes every emitted ray block into
-its slice of one [7, B*N] buffer, so the next trace reads it as it is.
+and final kernels read each hit's geometry from the slot-fetch planes
+(clustered scenes) or fetch the fused_table row themselves (dense
+scenes), then the material row (the reference's `_gather_attrs`); they
+take each NEE block's occlusion from whichever trace carried it (the
+any-hit booleans or the closest hit's prim), and mega writes every
+emitted ray block into its slice of one [7, B*N] buffer, so the next
+trace reads it as it is.
 
-The wrappers run the stage twins (fused/pt_fused.py) for CPU tensors only;
-for CUDA tensors they launch the kernel or raise. The CUDA BSDF implements
-the weight/pmf scaffold of cbsdf.setup and the `diffuse_r` lobe; a config
-whose `lobes_on` holds any other lobe raises NotImplementedError before
-any launch.
+The wrappers run the stage twins (fused/pt_fused.py) for CPU tensors
+only; for CUDA tensors they launch the kernel or raise. The CUDA BSDF
+implements the weight/pmf scaffold of cbsdf.setup and the lobes `metal`,
+`specular` and `diffuse_r`; a config whose `lobes_on` holds any other
+lobe raises NotImplementedError before any launch.
 """
 
 from __future__ import annotations
@@ -22,20 +26,24 @@ from typing import Dict
 import torch
 
 from .. import _build
+from ..bsdf import lut as lut_mod
 from ..sampling.sobol import sobol_matrices
+from . import cbsdf
 from . import pt_fused as pf
 
-CUDA_LOBES = ("diffuse_r",)
+CUDA_LOBES = ("metal", "specular", "diffuse_r")
+CUDA_SKIES = (pf.SKY_CONSTANT, pf.SKY_HOSEK)
 
 
 def _lobe_mask(cfg: pf.FusedConfig) -> int:
+    """Bit k set for lobe cbsdf.ALL_LOBES[k] (csrc/common.cuh LOBE_*)."""
     missing = [lobe for lobe in cfg.lobes_on if lobe not in CUDA_LOBES]
     if missing:
         raise NotImplementedError(
             f"CUDA shading kernel lacks BSDF lobes {missing}; it implements "
             f"{CUDA_LOBES} only"
         )
-    return 64 if "diffuse_r" in cfg.lobes_on else 0
+    return sum(1 << k for k, lobe in enumerate(cbsdf.ALL_LOBES) if lobe in cfg.lobes_on)
 
 
 @functools.lru_cache(maxsize=4)
@@ -44,9 +52,17 @@ def _sobol_device(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(sobol_matrices().view("int32"), device=device)
 
 
+@functools.lru_cache(maxsize=4)
+def _lut_device(device: torch.device) -> torch.Tensor:
+    """The [16, 16, 2] GGX reflection albedo table on `device`."""
+    return torch.as_tensor(lut_mod.reflection_lut_np(), device=device).contiguous()
+
+
 def _args(cfg: pf.FusedConfig, sv, usv, n_spp, **ptrs) -> _build.ShadeArgs:
     """ShadeArgs for one launch; usv/n_spp may be None for the final
     stage, which draws no samples."""
+    if cfg.sky_mode not in CUDA_SKIES:
+        raise NotImplementedError(f"sky mode {cfg.sky_mode} has no CUDA kernel")
     n = cfg.width * cfg.height
     checks = [("sv", sv, torch.float32, (pf.SV_SIZE,))]
     if usv is not None:
@@ -61,9 +77,11 @@ def _args(cfg: pf.FusedConfig, sv, usv, n_spp, **ptrs) -> _build.ShadeArgs:
     if usv is not None:
         a.usv, a.n_spp = usv.data_ptr(), n_spp.data_ptr()
     a.sobol = _sobol_device(sv.device).data_ptr()
+    a.lut = _lut_device(sv.device).data_ptr()
     a.n, a.width, a.height = n, cfg.width, cfg.height
     a.max_depth, a.n_lights = cfg.max_depth, cfg.n_lights
     a.lobe_mask = _lobe_mask(cfg)
+    a.sky_mode, a.has_dl = cfg.sky_mode, int(cfg.has_dl)
     for k, v in ptrs.items():
         setattr(a, k, v)
     return a
@@ -76,14 +94,31 @@ def _planes(t: torch.Tensor, rows: int, n: int, dtype, name: str):
     return t.data_ptr()
 
 
-def _hits_ptrs(hits: Dict, m: int):
+def _traced_ptrs(tr: pf.Traced, n: int, n_blocks: int) -> Dict:
+    """Pointers of a stage's traces over n_blocks ray blocks: occlusion
+    booleans over the first n_occ blocks, closest hits (and their
+    slot-fetch planes) over the rest."""
+    n_occ = tr.n_occ(n)
+    m = (n_blocks - n_occ) * n
+    out = {"hit_block0": n_occ, "hits_m": m}
+    if tr.occ is not None:
+        if tr.occ.dtype != torch.bool or tr.occ.shape != (n_occ * n,) \
+                or not tr.occ.is_contiguous():
+            raise ValueError(f"occ must be a contiguous bool [{n_occ * n}]")
+        out["occ"] = tr.occ.data_ptr()
+    if m == 0:
+        if tr.hits is not None:
+            raise ValueError("closest hits given for no closest block")
+        return out
     for k, dt in (("t", torch.float32), ("prim", torch.int32),
                   ("u", torch.float32), ("v", torch.float32)):
-        h = hits[k]
+        h = tr.hits[k]
         if h.dtype != dt or h.shape != (m,) or not h.is_contiguous():
             raise ValueError(f"hits[{k}] must be contiguous {dt} [{m}]")
-    return dict(hit_t=hits["t"].data_ptr(), hit_prim=hits["prim"].data_ptr(),
-                hit_u=hits["u"].data_ptr(), hit_v=hits["v"].data_ptr())
+        out["hit_" + k] = h.data_ptr()
+    if tr.geom is not None:
+        out["geom"] = _planes(tr.geom, pf.GEOM_COLS_USED, m, torch.float32, "geom")
+    return out
 
 
 def _tables_ptrs(tables: Dict):
@@ -97,6 +132,13 @@ def _tables_ptrs(tables: Dict):
     return dict(fused_table=ft.data_ptr(), mat_table=mt.data_ptr(),
                 light_table=lt.data_ptr(), n_faces=ft.shape[0],
                 n_mats=mt.shape[0])
+
+
+def _rays_ptrs(rays: torch.Tensor, n_blocks: int, n: int):
+    if rays.dtype != torch.float32 or rays.shape != (pf.RAY_ROWS, n_blocks * n) \
+            or not rays.is_contiguous():
+        raise ValueError(f"rays must be contiguous float32 [7, {n_blocks * n}]")
+    return dict(rays_in=rays.data_ptr(), rays_in_stride=rays.stride(0))
 
 
 def _launch(name: str, fn, args: _build.ShadeArgs, device) -> None:
@@ -124,29 +166,25 @@ def raygen(cfg: pf.FusedConfig, sv, usv, n_spp):
 
 
 def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
-         sample_idx, state, rays, hits: Dict, pending):
+         sample_idx, state, rays, pending, tr: pf.Traced):
     """Resolve bounce d-1, shade bounce d, emit bounce d's rays and RR.
 
-    rays/hits: the previous ray buffer and its closest hits (one block at
-    d = 0). Returns (state, rays [7, B*N], pending [11, N], aov [12, N] at
-    d = 0 else None)."""
+    rays/tr: the previous ray buffer (one block at d = 0) and its traces.
+    Returns (state, rays [7, B*N], pending [14, N], aov [12, N] at d = 0
+    else None)."""
     if sv.device.type == "cpu":
         _build.LAUNCHES["mega_twin"] += 1
         return pf.mega_twin(cfg, d, sv, usv, tables, n_spp, sample_idx,
-                            state, rays, hits, pending)
+                            state, rays, pending, tr)
     n = cfg.width * cfg.height
     dev = sv.device
     nb_in = 1 if d == 0 else len(cfg.blocks)
-    if rays.dtype != torch.float32 or rays.shape != (pf.RAY_ROWS, nb_in * n) \
-            or not rays.is_contiguous():
-        raise ValueError(f"rays must be contiguous float32 [7, {nb_in * n}]")
     if sample_idx.dtype != torch.int64 or sample_idx.shape != (n,):
         raise ValueError("sample_idx must be int64 [N]")
     ptrs = dict(
         state_in=_planes(state, pf.ST_ROWS, n, torch.float32, "state"),
-        rays_in=rays.data_ptr(), rays_in_stride=rays.stride(0),
-        sample_idx=sample_idx.data_ptr(), d=d,
-        **_hits_ptrs(hits, nb_in * n), **_tables_ptrs(tables),
+        sample_idx=sample_idx.data_ptr(), d=d, **_rays_ptrs(rays, nb_in, n),
+        **_traced_ptrs(tr, n, nb_in), **_tables_ptrs(tables),
     )
     if d > 0:
         ptrs["pending_in"] = _planes(pending, pf.PD_ROWS, n, torch.float32, "pending")
@@ -163,25 +201,21 @@ def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     return state_out, rays_out, pending_out, aov
 
 
-def final(cfg: pf.FusedConfig, sv, tables: Dict, state, rays, hits: Dict,
-          pending):
-    """Resolve the last bounce and scrub non-finite radiance: [3, N]."""
+def final(cfg: pf.FusedConfig, sv, tables: Dict, state, rays, pending, tr: pf.Traced):
+    """Resolve the last bounce and scrub non-finite radiance: [3, N].
+    tr covers the ray blocks before "rad"."""
     if sv.device.type == "cpu":
         _build.LAUNCHES["final_twin"] += 1
-        return pf.final_twin(cfg, sv, tables, state, rays, hits, pending)
+        return pf.final_twin(cfg, sv, tables, state, rays, pending, tr)
     n = cfg.width * cfg.height
     dev = sv.device
     nb = len(cfg.blocks)
-    if rays.dtype != torch.float32 or rays.shape != (pf.RAY_ROWS, nb * n) \
-            or not rays.is_contiguous():
-        raise ValueError(f"rays must be contiguous float32 [7, {nb * n}]")
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     ptrs = dict(
         state_in=_planes(state, pf.ST_ROWS, n, torch.float32, "state"),
         pending_in=_planes(pending, pf.PD_ROWS, n, torch.float32, "pending"),
-        rays_in=rays.data_ptr(), rays_in_stride=rays.stride(0),
-        rad_out=rad.data_ptr(),
-        **_hits_ptrs(hits, (nb - 1) * n), **_tables_ptrs(tables),
+        rad_out=rad.data_ptr(), **_rays_ptrs(rays, nb, n),
+        **_traced_ptrs(tr, n, nb - 1), **_tables_ptrs(tables),
     )
     a = _args(cfg, sv, None, None, **ptrs)
     _launch("final", _build.lib().fh_final, a, dev)

@@ -1,10 +1,13 @@
 """Host-side render orchestration (port of fredholm_tpu/renderer.py, the
-API slice 1 needs).
+API the ported slices need).
 
-Owns the device scene, the camera, the constant sky, the per-pixel sample
-counts and the six AOV layers, and drives the progressive integrator on
-`device`. On a CUDA device every stage runs a hand-written kernel; on the
-CPU the same stages run their plain PyTorch twins.
+Owns the device scene, the camera, the sky (constant or Hosek-Wilkie),
+the directional light, the per-pixel sample counts and the six AOV
+layers, and drives the progressive integrator on `device`: the CUDA card
+unless the caller asks for the CPU. On a CUDA device every stage runs a
+hand-written kernel; on the CPU the same stages run their plain PyTorch
+twins. Scenes of at most 1024 faces trace densely; larger ones through
+the cluster hierarchy (up to 4096 superclusters, as the reference).
 
 Left out on purpose (TPU scheduling devices that only re-order work):
 row bands, spp chunking, pixel swizzle and the (w*h) % 128 gate.
@@ -19,10 +22,11 @@ import torch
 
 from .camera import Camera
 from .fused.cbsdf import ALL_LOBES
-from .fused.pt_fused import MAX_KERNEL_LIGHTS
+from .fused.pt_fused import MAX_KERNEL_LIGHTS, SKY_CONSTANT, SKY_HOSEK
 from .integrator.pt import make_layers, render_progressive
-from .scene.device import DENSE_MAX_FACES, build_device_scene
+from .scene.device import build_device_scene
 from .scene.types import Scene
+from .sky import hosek as hosek_mod
 
 
 def _scene_lobes(scene: Scene) -> tuple:
@@ -50,11 +54,7 @@ def _scene_lobes(scene: Scene) -> tuple:
 
 
 def _check_envelope(scene: Scene, lobes: tuple) -> None:
-    """Raise NotImplementedError naming what slice 1 does not port."""
-    if scene.n_faces() > DENSE_MAX_FACES:
-        raise NotImplementedError(
-            f"{scene.n_faces()} faces: the clustered path for scenes above "
-            f"{DENSE_MAX_FACES} faces is not ported yet")
+    """Raise NotImplementedError naming what the port does not have yet."""
     if scene.textures or any(
         getattr(m, k) >= 0 for m in scene.materials
         for k in ("base_color_texture_id", "specular_color_texture_id",
@@ -77,10 +77,12 @@ def _check_envelope(scene: Scene, lobes: tuple) -> None:
 class Renderer:
     """Progressive path tracer with six AOV layers on one device."""
 
-    def __init__(self, width: int = 512, height: int = 512, device="cpu"):
+    def __init__(self, width: int = 512, height: int = 512, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Renderer(device='cuda') needs a CUDA device")
+            raise RuntimeError(
+                "Renderer(device='cuda') needs a CUDA device; pass "
+                "device='cpu' to run the plain PyTorch twins")
         if self.device.type not in ("cpu", "cuda"):
             raise NotImplementedError(f"no port for device {self.device}")
         self.width = width
@@ -90,6 +92,11 @@ class Renderer:
         self._lobes: tuple = ()
         self.camera = Camera(origin=np.asarray([0.0, 1.0, 5.0], np.float32))
         self.bg_color = np.zeros(3, np.float32)  # the constant sky
+        self.sky_mode = SKY_CONSTANT
+        self.sky_intensity = 1.0
+        self.hosek_state: Optional[Dict] = None
+        self.sun_direction = np.asarray([0.0, 1.0, 0.0], np.float32)
+        self.directional_light: Optional[Dict] = None
         self.seed = 42
         self.init_render_states()
 
@@ -103,8 +110,36 @@ class Renderer:
         self.scene = scene
         self.init_render_states()
 
+    def set_directional_light(self, le, direction, angle: float = 0.0):
+        """A sun of radiance `le` toward `direction`, `angle` degrees wide;
+        it also becomes the Hosek sky's sun (renderer.py:376-382)."""
+        d = np.asarray(direction, np.float32)
+        d = d / max(np.linalg.norm(d), 1e-12)
+        self.directional_light = {
+            "le": np.asarray(le, np.float32), "dir": d, "angle": np.float32(angle)}
+        self.sun_direction = d
+
+    def clear_directional_light(self):
+        self.directional_light = None
+
+    def set_sky_intensity(self, intensity: float):
+        self.sky_intensity = float(intensity)
+
     def set_bg_color(self, color):
         self.bg_color = np.asarray(color, np.float32)
+        self.sky_mode = SKY_CONSTANT
+
+    def load_arhosek_sky(self, turbidity: float, albedo: float):
+        """Couple the Hosek dome to the current sun direction
+        (renderer.h:588-607)."""
+        elevation = hosek_mod.sun_elevation_from_direction(self.sun_direction)
+        self.hosek_state = hosek_mod.cook_state(turbidity, albedo, elevation)
+        self.sky_mode = SKY_HOSEK
+
+    def clear_arhosek_sky(self):
+        self.hosek_state = None
+        if self.sky_mode == SKY_HOSEK:
+            self.sky_mode = SKY_CONSTANT
 
     # -- render state -------------------------------------------------------
 
@@ -115,7 +150,7 @@ class Renderer:
         self.sample_count = torch.zeros((n,), dtype=torch.int64, device=self.device)
 
     def _params(self, max_depth: int) -> Dict:
-        return {
+        params = {
             "width": self.width,
             "height": self.height,
             "max_depth": max_depth,
@@ -123,7 +158,15 @@ class Renderer:
             "camera": self.camera.device_params("cpu"),
             "seed": self.seed,
             "bg_color": self.bg_color,
+            "sky_mode": self.sky_mode,
+            "sky_intensity": self.sky_intensity,
+            "sun_direction": self.sun_direction,
         }
+        if self.sky_mode == SKY_HOSEK:
+            params["hosek"] = self.hosek_state
+        if self.directional_light is not None:
+            params["directional_light"] = self.directional_light
+        return params
 
     def render(self, n_samples: int = 1, max_depth: int = 10) -> Dict:
         """Accumulate n_samples progressive spp; returns the AOV layers

@@ -1,16 +1,27 @@
-"""Host scene -> device tensors (dense scenes only).
+"""Host scene -> device tensors.
 
-Port of the dense half of fredholm_tpu/scene/device.py plus the fused
-table builders of fredholm_tpu/fused/pt_fused.py:139-234. Tables are
-assembled in numpy, byte-identical to the reference's, then uploaded once:
+Port of fredholm_tpu/scene/device.py:84-189 (without the skip-link BVH,
+textures and instanced scenes) plus the fused table builders of
+fredholm_tpu/fused/pt_fused.py:139-234. Tables are assembled in numpy,
+byte-identical to the reference's numpy path, then uploaded once:
 
   fused_table      [F, GEOM_COLS] f32  per-face geometry (+ mat_id)
   fused_mat_table  [M, MAT_COLS]  f32  per-material shading params
   light_table      [max(L,1), 24] f32  emissive faces for NEE
   tri_soa          [9, F]         f32  rows v0xyz, e1xyz, e2xyz
+                                       (dense scenes, F <= 1024)
+  clusters         dict                the clustered traversal tables
+                                       (accel/clustered.py; F > 1024)
+  slot_attrs       [32, K*128]    f32  geometry in slot order
+                                       (fused/slot_fetch.py; F > 1024)
 
-`dev_from_reference` carries the reference package's own tables across,
-so tests can run both packages on literally the same inputs.
+Clustered scenes are one BLAS under one identity instance. The reference
+builds slot_attrs only above 2048 faces (a TPU gather cost); its own
+test shows the slot fetch and the row gather bit-identical, so the port
+builds it for every clustered scene.
+
+`dev_from_reference` carries the reference package's own dense tables
+across, so tests can run both packages on literally the same inputs.
 """
 
 from __future__ import annotations
@@ -20,6 +31,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..accel.bvh import build_bvh
+from ..accel.cluster import TLAS, build_tlas, extract_hierarchy
+from ..accel.clustered import prepare_clustered
+from ..fused.slot_fetch import build_slot_attrs
 from .types import Scene, materials_to_soa
 
 # dense closest-hit envelope (fredholm_tpu/renderer.py dense_threshold)
@@ -211,17 +226,23 @@ def _upload(tables: Dict[str, np.ndarray], n_lights: int, n_faces: int,
     return dev
 
 
+def build_clustered_tlas(verts: np.ndarray) -> TLAS:
+    """World triangles [F, 3, 3] -> numpy SAH BVH -> cluster hierarchy ->
+    a TLAS of one identity instance (device.py:93-114)."""
+    v0 = verts[:, 0]
+    e1 = verts[:, 1] - verts[:, 0]
+    e2 = verts[:, 2] - verts[:, 0]
+    bvh = build_bvh(verts.min(axis=1), verts.max(axis=1))
+    return build_tlas([extract_hierarchy(bvh, v0, e1, e2)], [(0, np.eye(4))])
+
+
 def build_host_tables(scene: Scene) -> Dict:
-    """numpy tables for a dense scene: {fused_table, fused_mat_table,
-    light_table, tri_soa} plus n_lights/n_faces."""
+    """numpy tables: {fused_table, fused_mat_table, light_table} plus
+    tri_soa (dense scenes) or tlas and slot_attrs (clustered scenes), and
+    n_lights / n_faces."""
     if not scene.is_valid():
         raise ValueError("invalid scene")
     n_faces = int(scene.n_faces())
-    if n_faces > DENSE_MAX_FACES:
-        raise NotImplementedError(
-            f"scene has {n_faces} faces: the clustered traversal path for "
-            f"more than {DENSE_MAX_FACES} faces is not ported yet"
-        )
     if scene.textures:
         raise NotImplementedError("textured scenes are not ported yet")
     fd = world_face_data(scene)
@@ -243,21 +264,31 @@ def build_host_tables(scene: Scene) -> Dict:
         "tex_header": np.asarray([[0.0, 1.0, 1.0, 1.0, 0.0]], np.float32),
         **lsoa,
     }
-    return {
+    out = {
         "fused_table": build_fused_table(np_dev),
         "fused_mat_table": build_fused_mat_table(np_dev),
         "light_table": build_light_table(np_dev),
-        "tri_soa": tri_soa_np(fd["verts"]),
         "n_lights": int(lights.shape[0]),
         "n_faces": n_faces,
     }
+    if n_faces <= DENSE_MAX_FACES:
+        out["tri_soa"] = tri_soa_np(fd["verts"])
+    else:
+        tlas = build_clustered_tlas(fd["verts"])
+        out["tlas"] = tlas
+        out["slot_attrs"] = build_slot_attrs(np_dev, tlas.blocks[9])
+    return out
 
 
 def build_device_scene(scene: Scene, device) -> Dict:
-    """Dense scene -> dict of tensors on `device` (see module docstring)."""
+    """Scene -> dict of tensors on `device` (see module docstring)."""
     host = build_host_tables(scene)
     n_lights, n_faces = host.pop("n_lights"), host.pop("n_faces")
-    return _upload(host, n_lights, n_faces, device)
+    tlas = host.pop("tlas", None)
+    dev = _upload(host, n_lights, n_faces, device)
+    if tlas is not None:
+        dev["clusters"] = prepare_clustered(tlas, device)
+    return dev
 
 
 _TRI_KEYS = ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")

@@ -1,10 +1,16 @@
-"""Procedural test scenes (slice 1: the Cornell box).
+"""Procedural test and benchmark scenes.
 
-Port of fredholm_tpu/scene/procedural.py `cornell_box` and its helpers,
-byte-identical host arrays (tests/test_torch_render.py checks).
+Port of fredholm_tpu/scene/procedural.py (`cornell_box`, `uv_sphere`,
+`sphere_array_test`, `terrain` and their helpers) with byte-identical
+host arrays (tests/test_torch_render.py and test_torch_clustered.py
+check), plus `hosek_sweep_scene`, a copy of the scene bench.py metric 2
+renders (`bench.py:60-104` `_sweep_scene`).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
 
 import numpy as np
 
@@ -47,6 +53,158 @@ def _quad(p0, p1, p2, p3):
     uvs = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
     faces = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
     return verts, normals, uvs, faces
+
+
+def uv_sphere(center, radius, n_theta=16, n_phi=32):
+    """UV sphere mesh; returns (verts, normals, uvs, faces)."""
+    center = np.asarray(center, np.float32)
+    thetas = np.linspace(0.0, np.pi, n_theta + 1)
+    phis = np.linspace(0.0, 2.0 * np.pi, n_phi + 1)
+    tt, pp = np.meshgrid(thetas, phis, indexing="ij")
+    x = np.sin(tt) * np.cos(pp)
+    y = np.cos(tt)
+    z = np.sin(tt) * np.sin(pp)
+    normals = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+    verts = center + radius * normals
+    uvs = np.stack([pp / (2 * np.pi), tt / np.pi], -1).reshape(-1, 2)
+
+    faces = []
+    w = n_phi + 1
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a, b = i * w + j, i * w + j + 1
+            c, d = (i + 1) * w + j, (i + 1) * w + j + 1
+            if i > 0:
+                faces.append([a, b, c])
+            if i < n_theta - 1:
+                faces.append([b, d, c])
+    return (
+        verts.astype(np.float32),
+        normals,
+        uvs.astype(np.float32),
+        np.asarray(faces, np.int32),
+    )
+
+
+def _scene(parts, materials) -> Scene:
+    """One identity-transform Scene from (verts, normals, uvs, faces,
+    material ids) parts."""
+    verts, norms, uvs, idxs, mids = _merge_mesh(*(list(c) for c in zip(*parts)))
+    n_faces = len(idxs)
+    return Scene(
+        vertices=verts,
+        normals=norms,
+        texcoords=uvs,
+        indices=idxs,
+        material_ids=mids,
+        instance_ids=np.zeros((n_faces,), np.int32),
+        materials=materials,
+        transforms=np.eye(4, dtype=np.float32)[None],
+        submesh_offsets=[0],
+        submesh_n_faces=[n_faces],
+    )
+
+
+def sphere_array_test(
+    param_name: str,
+    values,
+    base: Optional[Material] = None,
+    radius: float = 0.45,
+    spacing: float = 1.1,
+    with_floor: bool = True,
+) -> Scene:
+    """Material-test scene: a row of spheres sweeping one material
+    parameter (procedural.py:169-219)."""
+    base = base or Material()
+    materials: List[Material] = []
+    parts = []
+    n = len(values)
+    for i, val in enumerate(values):
+        m = dataclasses.replace(base)
+        setattr(m, param_name, val)
+        materials.append(m)
+        cx = (i - (n - 1) / 2.0) * spacing
+        v, nn, t, f = uv_sphere([cx, radius, 0.0], radius)
+        parts.append((v, nn, t, f, np.full((len(f),), i, np.int32)))
+    if with_floor:
+        materials.append(Material(base_color=(0.5, 0.5, 0.5), specular=0.0))
+        s = n * spacing
+        v, nn, t, f = _quad([-s, 0, -s], [-s, 0, s], [s, 0, s], [s, 0, -s])
+        parts.append((v, nn, t, f, np.full((len(f),), n, np.int32)))
+    return _scene(parts, materials)
+
+
+def terrain(n: int = 724, size: float = 20.0, amp: float = 1.8,
+            material: Optional[Material] = None) -> Scene:
+    """Displaced terrain of 2 n^2 triangles (procedural.py:242-304):
+    deterministic sum-of-sines heights with analytic normals."""
+    xs = np.linspace(-size / 2, size / 2, n + 1, dtype=np.float32)
+    zs = np.linspace(-size / 2, size / 2, n + 1, dtype=np.float32)
+    x, z = np.meshgrid(xs, zs, indexing="ij")
+    y = amp * (
+        np.sin(0.7 * x) * np.cos(0.5 * z)
+        + 0.45 * np.sin(2.3 * x + 1.0) * np.sin(1.9 * z + 0.5)
+        + 0.18 * np.cos(6.1 * x + 2.0) * np.cos(5.7 * z + 1.2)
+    ).astype(np.float32)
+    verts = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    dy_dx = amp * (
+        0.7 * np.cos(0.7 * x) * np.cos(0.5 * z)
+        + 0.45 * 2.3 * np.cos(2.3 * x + 1.0) * np.sin(1.9 * z + 0.5)
+        - 0.18 * 6.1 * np.sin(6.1 * x + 2.0) * np.cos(5.7 * z + 1.2)
+    )
+    dy_dz = amp * (
+        -0.5 * np.sin(0.7 * x) * np.sin(0.5 * z)
+        + 0.45 * 1.9 * np.sin(2.3 * x + 1.0) * np.cos(1.9 * z + 0.5)
+        - 0.18 * 5.7 * np.cos(6.1 * x + 2.0) * np.sin(5.7 * z + 1.2)
+    )
+    norms = np.stack([-dy_dx, np.ones_like(y), -dy_dz], axis=-1).reshape(-1, 3)
+    norms = (norms / np.linalg.norm(norms, axis=-1, keepdims=True)).astype(np.float32)
+    uvs = np.stack(
+        [(x + size / 2) / size, (z + size / 2) / size], axis=-1
+    ).reshape(-1, 2).astype(np.float32)
+    # two triangles per grid cell
+    i0 = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).ravel()
+    a, b, c, d = i0, i0 + 1, i0 + n + 1, i0 + n + 2
+    idxs = np.concatenate([np.stack([a, b, d], -1), np.stack([a, d, c], -1)]).astype(np.int32)
+    n_faces = len(idxs)
+    mat = material or Material(base_color=(0.55, 0.5, 0.42), specular=0.25,
+                               specular_roughness=0.5)
+    return Scene(
+        vertices=verts,
+        normals=norms,
+        texcoords=uvs,
+        indices=idxs,
+        material_ids=np.zeros((n_faces,), np.int32),
+        instance_ids=np.zeros((n_faces,), np.int32),
+        materials=[mat],
+        transforms=np.eye(4, dtype=np.float32)[None],
+        submesh_offsets=[0],
+        submesh_n_faces=[n_faces],
+    )
+
+
+def hosek_sweep_scene() -> Scene:
+    """The metalness sweep bench.py metric 2 renders under a Hosek sky
+    (bench.py:60-104): 12 spheres of 64 x 64 segments with metalness
+    0..1 over a floor, 96,770 triangles."""
+    base = Material(base_color=(0.9, 0.6, 0.3), specular_roughness=0.25)
+    values = list(np.linspace(0.0, 1.0, 12))
+    materials = []
+    parts = []
+    n = len(values)
+    spacing = 1.1
+    for i, val in enumerate(values):
+        m = dataclasses.replace(base)
+        m.metalness = val
+        materials.append(m)
+        cx = (i - (n - 1) / 2.0) * spacing
+        v, nn, t, f = uv_sphere([cx, 0.45, 0.0], 0.45, n_theta=64, n_phi=64)
+        parts.append((v, nn, t, f, np.full((len(f),), i, np.int32)))
+    materials.append(Material(base_color=(0.5, 0.5, 0.5), specular=0.0))
+    s = n * spacing
+    v, nn, t, f = _quad([-s, 0, -s], [-s, 0, s], [s, 0, s], [s, 0, -s])
+    parts.append((v, nn, t, f, np.full((len(f),), n, np.int32)))
+    return _scene(parts, materials)
 
 
 def cornell_box(light_le=(10.0, 10.0, 10.0)) -> Scene:

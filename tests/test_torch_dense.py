@@ -131,7 +131,8 @@ def test_cornell_rays_from_a_real_bounce():
     n_spp = torch.full((1024,), 5, dtype=torch.int64)
     state, sidx, rays0 = pf.raygen_twin(cfg, sv, usv, n_spp)
     hits0 = dense.intersect_closest_twin(dev["tri_soa"], rays0, 1024)
-    _, rays, _, _ = pf.mega_twin(cfg, 0, sv, usv, dev, n_spp, sidx, state, rays0, hits0, None)
+    _, rays, _, _ = pf.mega_twin(cfg, 0, sv, usv, dev, n_spp, sidx, state, rays0, None,
+                                  pf.Traced(hits0))
     tri9, rays_np = dev["tri_soa"].numpy(), rays.numpy()
     assert (rays_np[6] <= 0).any() and (rays_np[6] > 0).any()
     for r in (rays0.numpy(), rays_np):

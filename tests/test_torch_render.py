@@ -1,9 +1,12 @@
-"""Slice 1 as a whole: the port's host scene and tables are byte-equal to
-the reference's, and `fredholm_tpu_torch.Renderer` on the CPU renders
-the Cornell box like `fredholm_tpu.Renderer` (all six layers at
-rtol = atol = 2e-4, the bar of tests/test_fused_integrator.py:55-58;
-n_path_vertices at rtol 1e-6). The setup mirrors test_fused_integrator's
-so XLA:CPU's persistent compile cache serves both files."""
+"""The port as a whole: its host scene and tables are byte-equal to the
+reference's, and `fredholm_tpu_torch.Renderer` on the CPU renders like
+`fredholm_tpu.Renderer` (all six layers at rtol = atol = 2e-4, the bar of
+tests/test_fused_integrator.py:55-58; n_path_vertices exactly) on the
+Cornell box (dense, area lights) and on the metal_row golden's three
+spheres (clustered, lobes metal + specular + diffuse_r, constant sky; the
+reference on its plain path, use_pallas=False). The Cornell setup mirrors
+test_fused_integrator's so XLA:CPU's persistent compile cache serves both
+files."""
 
 import os
 import subprocess
@@ -16,14 +19,18 @@ import torch
 from fredholm_tpu.renderer import Renderer as JRenderer
 from fredholm_tpu.scene.device import build_device_scene as j_build
 from fredholm_tpu.scene.procedural import cornell_box as j_cornell
+from fredholm_tpu.scene.procedural import sphere_array_test as j_spheres
 from fredholm_tpu_torch import Renderer, cornell_box
 from fredholm_tpu_torch.scene import device as tdev
+from fredholm_tpu_torch.scene.procedural import sphere_array_test
 
 LAYERS = ("beauty", "position", "normal", "depth", "texcoord", "albedo")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _setup(cls, **kw):
+    if cls is Renderer:
+        kw.setdefault("device", "cpu")
     r = cls(width=32, height=32, **kw)
     r.set_scene(cornell_box() if cls is Renderer else j_cornell())
     r.camera.origin = np.asarray([0.0, 1.0, 0.6], np.float32)
@@ -125,17 +132,67 @@ def test_get_layer_and_envelope():
     assert r.get_layer("beauty").shape == (32, 32, 3)
     assert r.get_layer("depth").shape == (32, 32, 1)
     # the CPU twins take every lobe; the CUDA kernel raises before launch
+    # on the lobes it lacks
     scene = cornell_box()
-    scene.materials[0].specular = 0.5
+    scene.materials[0].coat = 0.5
     r.set_scene(scene)
-    assert r._lobes == ("specular", "diffuse_r")
+    assert r._lobes == ("coat", "diffuse_r")
     cfg = kernels.pf.FusedConfig(32, 32, 2, 2, r._lobes)
     with pytest.raises(NotImplementedError, match="lobes"):
         kernels._lobe_mask(cfg)
     scene = cornell_box()
     scene.materials[1].thin_film_thickness = 300.0
     with pytest.raises(NotImplementedError, match="thin-film"):
-        Renderer(8, 8).set_scene(scene)
+        Renderer(8, 8, device="cpu").set_scene(scene)
+
+
+def _metal_row(cls, **kw):
+    """The metal_row golden's setup (tools/gen_goldens.py:38-46) at 16^2."""
+    r = cls(width=16, height=16, **kw)
+    spheres = sphere_array_test if cls is Renderer else j_spheres
+    r.set_scene(spheres("metalness", [0.0, 0.5, 1.0], spacing=1.05))
+    r.camera.origin = np.asarray([0.0, 0.8, 2.2], np.float32)
+    r.camera._update_transform()
+    r.set_bg_color((0.6, 0.7, 0.9))
+    return r
+
+
+@pytest.fixture(scope="module")
+def metal_renders():
+    j = _metal_row(JRenderer)
+    j.use_pallas = False
+    cfg = j._config(1, 3)
+    assert cfg.use_fused and not cfg.use_dense
+    assert cfg.lobes_on == ("metal", "specular", "diffuse_r")
+    j.render(n_samples=2, max_depth=3)
+    t = _metal_row(Renderer, device="cpu")
+    assert "clusters" in t._dev and t._lobes == cfg.lobes_on
+    t.render(n_samples=2, max_depth=3)
+    return t.layers, {k: np.asarray(v) for k, v in j.layers.items()}
+
+
+@pytest.mark.parametrize("key", LAYERS)
+def test_metal_row_matches_reference(metal_renders, key):
+    got, want = metal_renders
+    np.testing.assert_allclose(got[key].numpy(), want[key], rtol=2e-4, atol=2e-4, err_msg=key)
+
+
+def test_metal_row_path_vertices_match(metal_renders):
+    got, want = metal_renders
+    assert float(got["n_path_vertices"]) == float(want["n_path_vertices"]) > 0
+
+
+def test_renderer_defaults_to_cuda():
+    """Renderer() asks for the card; without one it raises, never falling
+    back to the CPU."""
+    import inspect
+
+    assert inspect.signature(Renderer).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert Renderer(8, 8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Renderer(8, 8)
 
 
 def test_port_never_imports_jax_or_the_reference():

@@ -114,9 +114,10 @@ def captured():
             for d in range(cfg.max_depth):
                 hits = intersect_closest(dev["tri_soa"], rays, rays.shape[1])
                 state, rays, pending, _ = kernels.mega(
-                    cfg, d, sv, usv, dev, n_spp, sidx, state, rays, hits, pending)
+                    cfg, d, sv, usv, dev, n_spp, sidx, state, rays, pending,
+                    tpf.Traced(hits))
             hits = intersect_closest(dev["tri_soa"], rays, (len(cfg.blocks) - 1) * W * H)
-            kernels.final(cfg, sv, dev, state, rays, hits, pending)
+            kernels.final(cfg, sv, dev, state, rays, pending, tpf.Traced(hits))
         finally:
             for k, v in orig.items():
                 setattr(tpf, k, v)
@@ -183,8 +184,9 @@ def test_config_draw_slots_match(d):
 def test_cuda_lobe_envelope_raises():
     cfg, _ = _cfgs(2)
     with pytest.raises(NotImplementedError, match="lobes"):
-        kernels._lobe_mask(cfg._replace(lobes_on=("specular", "diffuse_r")))
+        kernels._lobe_mask(cfg._replace(lobes_on=("coat", "diffuse_r")))
     assert kernels._lobe_mask(cfg) == 64
+    assert kernels._lobe_mask(cfg._replace(lobes_on=("metal", "specular", "diffuse_r"))) == 70
 
 
 _CSRC = os.path.join(os.path.dirname(tpf.__file__), "..", "csrc")
@@ -199,12 +201,13 @@ def test_cuda_header_matches_python_layout():
                     ("C_AREA", "area"), ("C_MAT_ID", "mat_id")):
         assert int(defs[c]) == COL[name], c
     for m in ("emission_color", "has_emission", "base_color", "diffuse",
-              "diffuse_roughness", "specular", "metalness", "coat",
+              "diffuse_roughness", "specular", "specular_color",
+              "specular_roughness", "metalness", "coat",
               "coat_color", "transmission", "sheen", "subsurface",
               "thin_walled"):
         assert int(defs["M_" + m.upper()]) == COL[m] - GEOM_COLS, m
     for k in ("ST_O", "ST_D", "ST_THR", "ST_RAD", "ST_NV", "ST_ALIVE",
-              "PD_SKY", "PD_AREA", "PD_TPF", "PD_PDF_L", "PD_WI_L_Y",
+              "PD_SKY", "PD_AREA", "PD_TPF", "PD_PDF_L", "PD_WI_L_Y", "PD_DL",
               "AOV_POS", "AOV_NRM", "AOV_DEPTH", "AOV_TU", "AOV_TV", "AOV_ALB"):
         assert int(defs[k]) == getattr(tpf, k), k
     body = src[src.index("struct ShadeArgs {"):src.index("};", src.index("struct ShadeArgs {"))]
