@@ -76,19 +76,23 @@ def _inv_dir(d):
     return 1.0 / torch.where(torch.abs(d) < eps, torch.where(d < 0, -eps, eps), d)
 
 
-def _slab(box, ox, oy, oz, ix, iy, iz, t_best):
-    """box: 6 scalars or [L] tensors (lo.xyz, hi.xyz); pallas_clustered
-    `_slab` in its evaluation order."""
-    t1x = (box[0] - ox) * ix
-    t2x = (box[3] - ox) * ix
-    t1y = (box[1] - oy) * iy
-    t2y = (box[4] - oy) * iy
-    t1z = (box[2] - oz) * iz
-    t2z = (box[5] - oz) * iz
-    tn = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
-                       torch.minimum(t1z, t2z))
-    tf = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
-                       torch.maximum(t1z, t2z))
+def _slab_t(box, o, inv):
+    """Slab entry and exit distances (tn, tf) of rays (origins o, inverse
+    directions inv; 3 tensors each) against box (lo.xyz, hi.xyz), in the
+    evaluation order of pallas_clustered `_slab`; lanes broadcast against
+    boxes."""
+    t1 = [(box[k] - o[k]) * inv[k] for k in range(3)]
+    t2 = [(box[3 + k] - o[k]) * inv[k] for k in range(3)]
+    tn = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]), torch.minimum(t1[1], t2[1])),
+                       torch.minimum(t1[2], t2[2]))
+    tf = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]), torch.maximum(t1[1], t2[1])),
+                       torch.maximum(t1[2], t2[2]))
+    return tn, tf
+
+
+def _slab(box, o, inv, t_best):
+    """pallas_clustered `_slab`: the box gate of lanes with running best t."""
+    tn, tf = _slab_t(box, o, inv)
     return (tn <= tf) & (tf >= 0.0) & (tn <= t_best)
 
 
@@ -117,18 +121,6 @@ def _mt(tri, o, d):
     return t, u, v, valid
 
 
-def _group_slabs(gbox, o, inv):
-    """Slab entry/exit distances of lanes [L] against the 8 group AABBs
-    gbox [6, 8] of one cluster: (tn, tf) [L, 8]."""
-    t1 = [(gbox[k][None, :] - o[k][:, None]) * inv[k][:, None] for k in range(3)]
-    t2 = [(gbox[3 + k][None, :] - o[k][:, None]) * inv[k][:, None] for k in range(3)]
-    tn = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]), torch.minimum(t1[1], t2[1])),
-                       torch.minimum(t1[2], t2[2]))
-    tf = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]), torch.maximum(t1[1], t2[1])),
-                       torch.maximum(t1[2], t2[2]))
-    return tn, tf
-
-
 def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
     """Per-lane traversal of the tables, vectorised over lanes; each level
     gates with the lane's running best t, as the kernel does. A cluster's
@@ -145,12 +137,7 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
     root = c["root_aabb"][:, 0]
     best_t = tmax.clone()
     # root-box exit clamp (pallas_clustered.py:303-321)
-    t1 = [(root[k] - wo[k]) * winv[k] for k in range(3)]
-    t2 = [(root[3 + k] - wo[k]) * winv[k] for k in range(3)]
-    rtn = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]), torch.minimum(t1[1], t2[1])),
-                        torch.minimum(t1[2], t2[2]))
-    rtf = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]), torch.maximum(t1[1], t2[1])),
-                        torch.maximum(t1[2], t2[2]))
+    rtn, rtf = _slab_t(root, wo, winv)
     hit_root = (rtn <= rtf) & (rtf >= 0.0)
     clamp = torch.where(hit_root, rtf * 1.0001 + 1e-4, 0.0)
     best_t = torch.where(alive, torch.minimum(best_t, clamp), best_t)
@@ -170,19 +157,33 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
     g_idx = torch.arange(N_TRI_GROUPS, device=dev)
     k_idx = torch.arange(CLUSTER_SIZE, device=dev)
 
+    # with stats: the tests taken, and a mask per table of the entries read
+    n_slots = blocks.shape[1]
+    if stats is not None:
+        sizes = {"sc_aabb": sc_mcount.shape[0], "sc_mcount": sc_mcount.shape[0],
+                 "cl_box": cl_meta.shape[1], "cl_ref": cl_meta.shape[1],
+                 "grp_box": n_slots, "tri": n_slots, "prim": n_slots}
+        read = stats.setdefault("read", {})
+        for k, n in sizes.items():
+            read.setdefault(k, torch.zeros(n, dtype=torch.bool, device=dev))
+
     def count(key, n):
         if stats is not None:
             stats[key] += int(n)
+
+    def mark(key, idx):
+        if stats is not None:
+            read[key][idx] = True
 
     def active(lanes):
         return lanes[~occ[lanes]] if any_hit else lanes
 
     for i in range(inst_sc.shape[1]):
-        lanes = torch.nonzero(alive, as_tuple=True)[0]
+        lanes = active(torch.nonzero(alive, as_tuple=True)[0])
         count("slab", lanes.numel())
-        g = _slab(c["inst_aabb"][:, i], *(x[lanes] for x in wo), *(x[lanes] for x in winv),
+        g = _slab(c["inst_aabb"][:, i], [x[lanes] for x in wo], [x[lanes] for x in winv],
                   best_t[lanes])
-        lanes = active(lanes[g])
+        lanes = lanes[g]
         if lanes.numel() == 0:
             continue
         if identity:
@@ -198,26 +199,35 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
         inst_lanes = lanes
         for s in range(sc_lo, sc_lo + sc_n):
             lanes = active(inst_lanes)
+            if lanes.numel() == 0:
+                break
             count("slab", lanes.numel())
-            g = _slab(c["sc_aabb"][:, s], *(x[lanes] for x in o),
-                      *(x[lanes] for x in inv), best_t[lanes])
+            mark("sc_aabb", s)
+            g = _slab(c["sc_aabb"][:, s], [x[lanes] for x in o], [x[lanes] for x in inv],
+                      best_t[lanes])
             sc_lanes = lanes[g]
+            if sc_lanes.numel():
+                mark("sc_mcount", s)
             for j in range(int(sc_mcount[s])):
                 col = s * SC_GROUP + j
                 lanes = active(sc_lanes)
                 if lanes.numel() == 0:
                     break
                 count("slab", lanes.numel())
-                g = _slab(c["cl_meta"][:, col], *(x[lanes] for x in o),
-                          *(x[lanes] for x in inv), best_t[lanes])
+                mark("cl_box", col)
+                g = _slab(c["cl_meta"][:, col], [x[lanes] for x in o],
+                          [x[lanes] for x in inv], best_t[lanes])
                 lanes = lanes[g]
                 if lanes.numel() == 0:
                     continue
+                mark("cl_ref", col)
                 cnt = int(cl_meta[6, col])
                 base = int(cl_meta[7, col]) * CLUSTER_SIZE
+                n_grp = min(N_TRI_GROUPS, -(-cnt // TRI_GROUP))
                 lo_, do_ = [x[lanes] for x in o], [x[lanes] for x in d]
-                tn, tf = _group_slabs(blocks[10:16, base:base + N_TRI_GROUPS],
-                                      lo_, [x[lanes] for x in inv])
+                # the cluster's 8 group boxes against its lanes: [L, 8]
+                tn, tf = _slab_t(blocks[10:16, None, base:base + N_TRI_GROUPS],
+                                 [x[:, None] for x in lo_], [x[lanes][:, None] for x in inv])
                 t, u, v, valid = _mt(blocks[0:9, None, base:base + CLUSTER_SIZE], lo_, do_)
                 entry_t = best_t[lanes]
                 ok = valid & (t < entry_t[:, None]) & (k_idx < cnt)
@@ -227,25 +237,38 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
                 exists = g_idx * TRI_GROUP < cnt
                 if any_hit:
                     gate = (tn <= tf) & (tf >= 0.0) & (tn <= entry_t[:, None]) & exists
-                    occ[lanes] = (gate & (g_t < entry_t[:, None])).any(dim=1)
-                    count("slab", lanes.numel() * int(exists.sum()))
-                    count("tri", int((gate.to(torch.int64) * torch.clamp(
-                        cnt - g_idx * TRI_GROUP, 0, TRI_GROUP)).sum()))
+                    hitg = gate & (g_t < entry_t[:, None])
+                    has = hitg.any(dim=1)
+                    occ[lanes] = has
+                    if stats is not None:
+                        # the kernel stops at its first hit: groups up to the
+                        # first hit group fg, triangles of fg up to its first hit
+                        fg = torch.where(has, hitg.to(torch.int8).argmax(dim=1), N_TRI_GROUPS)
+                        ok3 = ok.view(-1, N_TRI_GROUPS, TRI_GROUP)
+                        first_k = ok3.to(torch.int8).argmax(dim=2)
+                        walked = gate & (g_idx[None] < fg[:, None])
+                        tris = walked[:, :, None] & (k_idx < cnt).view(1, N_TRI_GROUPS, TRI_GROUP)
+                        tris |= ((g_idx[None] == fg[:, None])[:, :, None]
+                                 & (k_idx[:TRI_GROUP] <= first_k[:, :, None]))
+                        count("slab", int(torch.clamp(fg + 1, max=n_grp).sum()))
+                        count("tri", int(tris.sum()))
+                        tested = (g_idx[None] <= fg[:, None]).any(dim=0) & exists
+                        mark("grp_box", base + g_idx[tested])
+                        mark("tri", base + k_idx[tris.any(dim=0).view(-1)])
                     continue
                 cur = entry_t
                 win = torch.full_like(g_k, -1)[:, 0]
-                n_tri = 0
-                for gi in range(N_TRI_GROUPS):
-                    if gi * TRI_GROUP >= cnt:
-                        break
+                for gi in range(n_grp):
                     gate = (tn[:, gi] <= tf[:, gi]) & (tf[:, gi] >= 0.0) & (tn[:, gi] <= cur)
-                    if stats is not None:
-                        n_tri += int(gate.sum()) * min(TRI_GROUP, cnt - gi * TRI_GROUP)
+                    if stats is not None and bool(gate.any()):
+                        k0, k1 = gi * TRI_GROUP, min(cnt, (gi + 1) * TRI_GROUP)
+                        count("tri", int(gate.sum()) * (k1 - k0))
+                        mark("tri", slice(base + k0, base + k1))
                     better = gate & (g_t[:, gi] < cur)
                     cur = torch.where(better, g_t[:, gi], cur)
                     win = torch.where(better, gi * TRI_GROUP + g_k[:, gi], win)
-                count("slab", lanes.numel() * min(N_TRI_GROUPS, -(-cnt // TRI_GROUP)))
-                count("tri", n_tri)
+                count("slab", lanes.numel() * n_grp)
+                mark("grp_box", slice(base, base + n_grp))
                 hit = win >= 0
                 hl, kk = lanes[hit], win[hit]
                 best_t[hl] = cur[hit]
@@ -254,6 +277,16 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
                 bu[hl] = torch.gather(u[hit], 1, kk[:, None])[:, 0]
                 bv[hl] = torch.gather(v[hit], 1, kk[:, None])[:, 0]
                 inst[hl] = i
+    if stats is not None:
+        # the kernel reads row 9 (prim) of each lane's final slot; every
+        # alive lane reads the root box and the instance rows, the other
+        # tables once per entry read
+        mark("prim", slot[slot >= 0].long())
+        rows = {"sc_aabb": 6, "sc_mcount": 1, "cl_box": 6, "cl_ref": 2, "grp_box": 6,
+                "tri": 9, "prim": 1}
+        inst_rows = 6 + 2 + (0 if identity else 12)
+        stats["table_bytes"] = 4 * (6 + inst_rows * inst_sc.shape[1] + sum(
+            r * int(read[k].sum()) for k, r in rows.items()))
     if any_hit:
         return {"occluded": occ}
     miss = prim < 0
@@ -264,13 +297,16 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
 def intersect_closest_twin(c: Dict, rays: torch.Tensor, stats=None) -> Dict:
     """Plain PyTorch clustered closest hit; same contract as the kernel.
     stats (a dict with "slab" and "tri" counters), when given, receives
-    the slab and triangle tests this call's lanes took."""
+    the slab and triangle tests this call's lanes take in the kernel,
+    "read" (a mask per table of the entries they read) and "table_bytes"
+    (the bytes of those entries, each counted once)."""
     _build.LAUNCHES["clustered_closest_twin"] += 1
     return _traverse_twin(c, rays, False, stats)
 
 
 def intersect_any_twin(c: Dict, rays: torch.Tensor, stats=None) -> torch.Tensor:
-    """Plain PyTorch clustered any-hit: bool [M]."""
+    """Plain PyTorch clustered any-hit: bool [M]; stats as for the
+    closest hit, counting only the tests before each lane's first hit."""
     _build.LAUNCHES["clustered_any_twin"] += 1
     return _traverse_twin(c, rays, True, stats)["occluded"]
 

@@ -17,13 +17,17 @@
 // need no stack: front-to-back ordering, shared-memory staging and
 // warp-coherent traversal are later work.
 //
-// Bounds on the H100: operations. A lane runs ~21 flops per slab test and
-// ~40 per triangle test, and incoherent bounce rays visit tens of clusters
-// (hundreds of tests each); device memory traffic is the ray buffer once
-// in (28 B a ray) and 24 B (closest) or 1 B (any) a ray out, plus the
-// tables (40 B a slot), which the L2 cache holds for the scenes of this
-// slice. Divergent lanes of a warp serialise the loops, which is what
-// warp-coherent traversal would fix.
+// Bounds on the H100, at the bounce shapes of the hosek sweep that
+// chip_smoke.py times (PERF.md has the numbers): the closest hit by bytes,
+// the any-hit by operations. A live ray reads 28 B and a dead one 4 B, a
+// ray writes 24 B (closest) or 1 B (any), and the tables are read once per
+// entry the rays reach; a slab test takes ~21 flops and a triangle test
+// ~40. The any-hit traces three blocks of rays, each walking boxes until
+// its first hit, so its tests outweigh its bytes. Both run 70x (any) to
+// 180x (closest) above their bound: each thread waits on a chain of
+// dependent loads (supercluster, cluster and group boxes, then triangles),
+// and divergent lanes of a warp serialise the loops, which warp-coherent
+// traversal would fix.
 #include "common.cuh"
 
 namespace {

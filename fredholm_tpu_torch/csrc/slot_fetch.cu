@@ -11,9 +11,10 @@
 // distinct hit clusters and shuffled lanes, because a per-lane gather was
 // its slowest primitive; here a per-lane gather through the L2 cache is
 // cheap, so the kernel is a plain gather.
-// Bounds on the H100: bytes. Per lane it reads 4 B of slot and 104 B of
-// attributes and writes 104 B; stores are coalesced, loads of lanes that
-// hit one cluster fall in one 512 B row segment.
+// Bounds on the H100: bytes. Per lane it reads 4 B of slot and writes
+// 104 B; a hit lane also reads its slot's 104 B of attributes. Stores are
+// coalesced, loads of lanes that hit one cluster fall in one 512 B row
+// segment.
 #include "common.cuh"
 
 namespace {

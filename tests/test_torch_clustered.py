@@ -241,9 +241,118 @@ def test_twin_traverses_a_column_view():
 def test_twin_counts_its_tests():
     c, _, rays, _ = _sphere_case(False)
     stats = {"slab": 0, "tri": 0}
-    tcl.intersect_closest_twin(c, rays, stats)
+    got = tcl.intersect_closest_twin(c, rays, stats)
     alive = int((rays[6] > 0).sum())
     assert stats["slab"] >= alive and stats["tri"] > alive
+    read = stats["read"]
+    hit_slots = got["slot"][got["prim"] >= 0].long()
+    assert read["prim"][hit_slots].all() and read["tri"][hit_slots].all()
+    assert int(read["prim"].sum()) == torch.unique(hit_slots).numel()
+    assert 0 < stats["table_bytes"] < sum(c[k].numel() * 4 for k in tcl._TABLE_KEYS)
+
+
+def _kernel_walk(c, rays, any_hit):
+    """csrc/clustered.cu's loop, one ray at a time in float32 numpy:
+    (slab tests, triangle tests, {table: entries read})."""
+    f = np.float32
+    tb = {k: c[k].numpy() for k in tcl._TABLE_KEYS}
+    n_inst, nc = tb["inst_aabb"].shape[1], tb["cl_meta"].shape[1]
+    blocks = tb["blocks"]
+    n = {"slab": 0, "tri": 0}
+    read = {k: set() for k in ("sc_aabb", "sc_mcount", "cl_box", "cl_ref", "grp_box",
+                               "tri", "prim")}
+
+    def inv_dir(x):
+        return f(1.0) / ((f(-1e-12) if x < 0 else f(1e-12)) if abs(x) < f(1e-12) else x)
+
+    def slab_t(box, o, inv):
+        t1 = [(box[k] - o[k]) * inv[k] for k in range(3)]
+        t2 = [(box[3 + k] - o[k]) * inv[k] for k in range(3)]
+        tn = max(max(min(t1[0], t2[0]), min(t1[1], t2[1])), min(t1[2], t2[2]))
+        tf = min(min(max(t1[0], t2[0]), max(t1[1], t2[1])), max(t1[2], t2[2]))
+        return tn, tf
+
+    def slab(box, o, inv, best):
+        n["slab"] += 1
+        tn, tf = slab_t(box, o, inv)
+        return tn <= tf and tf >= 0 and tn <= best
+
+    def walk(o, d, tmax):
+        inv = [inv_dir(x) for x in d]
+        tn, tf = slab_t(tb["root_aabb"][:, 0], o, inv)
+        best = min(tmax, tf * f(1.0001) + f(1e-4) if tn <= tf and tf >= 0 else f(0.0))
+        best_slot = -1
+        for i in range(n_inst):
+            if not slab(tb["inst_aabb"][:, i], o, inv, best):
+                continue
+            ro, rd, rinv = o, d, inv
+            if not c["identity"]:
+                mm = tb["inst_minv"][:, i]
+                ro = [mm[4 * r] * o[0] + mm[4 * r + 1] * o[1] + mm[4 * r + 2] * o[2]
+                      + mm[4 * r + 3] for r in range(3)]
+                rd = [mm[4 * r] * d[0] + mm[4 * r + 1] * d[1] + mm[4 * r + 2] * d[2]
+                      for r in range(3)]
+                rinv = [inv_dir(x) for x in rd]
+            sc_lo, sc_n = tb["inst_sc"][0, i], tb["inst_sc"][1, i]
+            for s in range(sc_lo, sc_lo + sc_n):
+                read["sc_aabb"].add(s)
+                if not slab(tb["sc_aabb"][:, s], ro, rinv, best):
+                    continue
+                read["sc_mcount"].add(s)
+                for col in range(s * 128, s * 128 + tb["sc_mcount"][s]):
+                    read["cl_box"].add(col)
+                    if not slab(tb["cl_meta"][:, col], ro, rinv, best):
+                        continue
+                    read["cl_ref"].add(col)
+                    cnt = int(tb["cl_meta"][6, col])
+                    base = int(tb["cl_meta"][7, col]) * 128
+                    for g in range(-(-cnt // 16)):
+                        read["grp_box"].add(base + g)
+                        if not slab(blocks[10:16, base + g], ro, rinv, best):
+                            continue
+                        for k in range(base + 16 * g, base + min(cnt, 16 * g + 16)):
+                            n["tri"] += 1
+                            read["tri"].add(k)
+                            v0, e1, e2 = blocks[0:3, k], blocks[3:6, k], blocks[6:9, k]
+                            p = [rd[1] * e2[2] - rd[2] * e2[1], rd[2] * e2[0] - rd[0] * e2[2],
+                                 rd[0] * e2[1] - rd[1] * e2[0]]
+                            det = e1[0] * p[0] + e1[1] * p[1] + e1[2] * p[2]
+                            inv_det = f(1.0) / det if abs(det) > f(1e-12) else f(0.0)
+                            tv = [ro[0] - v0[0], ro[1] - v0[1], ro[2] - v0[2]]
+                            u = (tv[0] * p[0] + tv[1] * p[1] + tv[2] * p[2]) * inv_det
+                            q = [tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+                                 tv[0] * e1[1] - tv[1] * e1[0]]
+                            v = (rd[0] * q[0] + rd[1] * q[1] + rd[2] * q[2]) * inv_det
+                            t = (e2[0] * q[0] + e2[1] * q[1] + e2[2] * q[2]) * inv_det
+                            if (abs(det) > f(1e-12) and u >= 0 and v >= 0 and u + v <= f(1.0)
+                                    and t > 0 and t < best):
+                                if any_hit:
+                                    return
+                                best, best_slot = t, k
+        if best_slot >= 0:
+            read["prim"].add(best_slot)
+
+    r = rays.numpy()
+    for j in range(r.shape[1]):
+        if r[6, j] > 0:
+            walk(list(r[0:3, j]), list(r[3:6, j]), r[6, j])
+    return n["slab"], n["tri"], read
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("instanced", [False, True], ids=["identity", "instanced"])
+def test_twin_counts_the_kernels_walk(any_hit, instanced):
+    """The twin's test counts and read masks (which set chip_smoke.py's
+    bounds) equal a ray-at-a-time replay of the kernel's loop, early exit
+    of any-hit included."""
+    c, _, rays, _ = _sphere_case(instanced)
+    rays = rays[:, ::4].contiguous()
+    stats = {"slab": 0, "tri": 0}
+    (tcl.intersect_any_twin if any_hit else tcl.intersect_closest_twin)(c, rays, stats)
+    n_slab, n_tri, read = _kernel_walk(c, rays, any_hit)
+    assert (stats["slab"], stats["tri"]) == (n_slab, n_tri)
+    for k, entries in read.items():
+        assert set(torch.nonzero(stats["read"][k]).flatten().tolist()) == entries, k
 
 
 # ---------------------------------------------------------------------------

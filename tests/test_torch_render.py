@@ -210,3 +210,22 @@ def test_port_never_imports_jax_or_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_metric1.py"])
+def test_chip_scripts_never_import_jax_or_the_reference(script):
+    """The scripts run on a machine without JAX: no import of jax, the
+    reference package, bench.py or tools/, at any depth of the file."""
+    import ast
+
+    with open(os.path.join(ROOT, script)) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    tops = {n.split(".")[0] for n in names}
+    assert "fredholm_tpu_torch" in tops or script != "chip_smoke.py"
+    assert not tops & {"jax", "jaxlib", "fredholm_tpu", "bench", "tools"}, tops
