@@ -32,6 +32,16 @@ exits non-zero without the final `ok` line:
    spp (bench.py:170-182), with its launch counts, and per-kernel times
    vs the plain twins at its shapes, beside each kernel's bound, and the
    device's busy share from torch.profiler
+10. the dense any-hit kernel (B3) vs its twin, bit-equal masks: the
+    1024-triangle soup of [2] (2^20 rays, dead lanes included) and the
+    concatenated NEE rays of a real wavefront bounce of metric 1's scene
+11. the wavefront integrator's goldens through Renderer(device="cuda"):
+    cornell with use_fused = False (dense, B1 + B3) and thin_film at its
+    committed setup (clustered, B4/B5/B6)
+12. the wavefront metric: metric 1's scene and camera at 512x512, 16 x
+    render(1) after 2 warm-up spp, depth 5, sampler_mode "bluenoise",
+    with its launch counts (B1 160, B3 80, twins 0), the profiler's busy
+    share and top kernels, and B3's time vs its twin beside its bound
 """
 
 from __future__ import annotations
@@ -78,10 +88,11 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -320,18 +331,74 @@ def timed_metric(r, spp, depth, build):
 
 
 def time_pairs(tag, pairs, reps):
-    """{name: (kernel ms, twin ms)} in turns twin, kernel, kernel, twin."""
+    """{name: (kernel ms, twin ms)} in turns twin, kernel, kernel, twin. A
+    twin timed one call a turn (seconds a call) is not warmed up first: the
+    comparisons before ran it."""
     times = {}
     for name, (kf, tf) in pairs.items():
         kr, tr = reps.get(name, (20, 3))
-        p1 = cuda_ms(tf, tr)
+        p1 = cuda_ms(tf, tr, warm=tr > 1)
         k1 = cuda_ms(kf, kr)
         k2 = cuda_ms(kf, kr)
-        p2 = cuda_ms(tf, tr)
+        p2 = cuda_ms(tf, tr, warm=tr > 1)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"{tag} {name}: kernel {times[name][0]:.4f} ms, twin {times[name][1]:.4f} ms "
               f"(turns: twin {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, twin {p2:.4f})")
     return times
+
+
+def profile_busy(tag, what, r, depth, spp=2, start_tracer=True):
+    """Device busy share and top kernels over spp samples of r
+    (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # a first session starts the tracer (CUPTI), which takes seconds, once
+    # a process; the next one is measured, its wall clock taken inside it
+    if start_tracer:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            r.render(n_samples=1, max_depth=depth)
+            torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        r.render(n_samples=spp, max_depth=depth)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = ev.self_cuda_time_total
+        by_kernel[ev.key] = dt / 1e3
+    busy_ms = sum(by_kernel.values())
+    print(f"{tag} profiler, {spp} spp of {what}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, busy share {busy_ms / wall_ms:.4f}")
+    for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"{tag}   {v:.3f} ms {k[:90]}")
+
+
+def first_nee_rays(r, wavefront):
+    """The [7, M] ray buffer of the first any-hit trace of one render(1)
+    at depth 1 through the wavefront integrator: a real bounce's
+    concatenated NEE blocks. The render's samples are cleared after."""
+    seen = []
+    trace_any = wavefront.trace_any
+
+    def spy(dev_, o, d, t_max):
+        seen.append(wavefront._ray_buffer(o, d, t_max))
+        return trace_any(dev_, o, d, t_max)
+
+    wavefront.trace_any = spy
+    try:
+        r.render(n_samples=1, max_depth=1)
+    finally:
+        wavefront.trace_any = trace_any
+    r.init_render_states()
+    return seen[0]
 
 
 def main() -> None:
@@ -349,7 +416,9 @@ def main() -> None:
     from fredholm_tpu_torch.accel import clustered, dense
     from fredholm_tpu_torch.fused import kernels, slot_fetch
     from fredholm_tpu_torch.fused import pt_fused as pf
+    from fredholm_tpu_torch.integrator import pt as wavefront
     from fredholm_tpu_torch.scene.device import build_device_scene
+    from fredholm_tpu_torch.scene.types import Material
     from fredholm_tpu_torch.scene.procedural import (
         hosek_sweep_scene,
         sphere_array_test,
@@ -665,34 +734,7 @@ def main() -> None:
         "launches": launches2,
     }))
 
-    # device busy share over 2 spp of metric 2 (torch.profiler)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    # a first session starts the tracer (CUPTI), which takes seconds; the
-    # second one is measured, its wall clock taken inside the session
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        rs.render(n_samples=1, max_depth=depth2)
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        rs.render(n_samples=2, max_depth=depth2)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - w0) * 1e3
-    by_kernel = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = ev.self_cuda_time_total
-        by_kernel[ev.key] = dt / 1e3
-    busy_ms = sum(by_kernel.values())
-    print(f"[9] profiler, 2 spp of metric 2: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms, busy share {busy_ms / wall_ms:.4f}")
-    for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[9]   {v:.3f} ms {k[:90]}")
+    profile_busy("[9]", "metric 2", rs, depth2)
 
     # per-kernel times at metric-2 shapes (a real bounce's blocks), in turns
     st, si, rays = kernels.raygen(cfg2, sv2, usv2, n_spp2)
@@ -759,12 +801,124 @@ def main() -> None:
         print(f"[9] {k}: bound {ms:.4f} ms ({by})")
     phase_done(9, t0)
 
-    # ---- 6: records. dense_closest is timed on metric 1's path, the
-    # others on metric 2's (shading kernels: metric 1's times print in [5])
+    # ---- 10: dense any-hit (B3) vs its twin: bit-equal masks
+    t0 = time.perf_counter()
+
+    def check_any(name, tri_, rays_):
+        m = rays_.shape[1]
+        k_occ = dense.intersect_any(tri_, rays_, m)
+        t_occ = dense.intersect_any_twin(tri_, rays_, m)
+        torch.cuda.synchronize()
+        off = (k_occ != t_occ).float().mean().item()
+        print(f"[10] {name}: rays={m} live={int((rays_[6] > 0).sum())} "
+              f"occluded={int(k_occ.sum())} lanes differing={int((k_occ != t_occ).sum())}")
+        if off != 0.0:
+            raise AssertionError(f"{name}: dense any-hit kernel differs from its twin")
+        return off
+
+    def wavefront_metric1_renderer():
+        r = ft.Renderer(W, H, device="cuda")
+        r.set_scene(ft.cornell_box())
+        r.camera.origin = np.asarray([0.0, 1.0, 0.6], np.float32)
+        r.camera._update_transform()
+        r.sampler_mode = "bluenoise"
+        return r
+
+    rw = wavefront_metric1_renderer()
+    if rw._params(5)["use_fused"]:
+        raise AssertionError("bluenoise sampling did not route to the wavefront integrator")
+    tri_w = rw._dev["tri_soa"]
+    nee = first_nee_rays(rw, wavefront)
+    results["dense_any"] = max(check_any("soup 1024 tris", s_tri, s_rays),
+                               check_any("wavefront NEE, metric-1 bounce", tri_w, nee))
+    phase_done(10, t0)
+
+    # ---- 11: goldens of the wavefront integrator through the user entry point
+    t0 = time.perf_counter()
+
+    def g_cornell_wavefront():
+        r = ft.Renderer(64, 64, device="cuda")
+        r.set_scene(ft.cornell_box())
+        r.camera.origin = np.asarray([0.0, 1.0, 0.6], np.float32)
+        r.camera._update_transform()
+        r.use_fused = False
+        return r, dict(n_samples=32, max_depth=4), ("dense_closest", "dense_any")
+
+    def g_thin_film():
+        r = ft.Renderer(48, 48, device="cuda")
+        r.set_scene(sphere_array_test(
+            "thin_film_thickness", [250.0, 550.0],
+            base=Material(diffuse=0.0, specular=1.0, specular_roughness=0.05), spacing=1.05))
+        r.camera.origin = np.asarray([0.0, 0.6, 1.8], np.float32)
+        r.camera._update_transform()
+        r.set_bg_color((0.9, 0.9, 0.9))
+        return r, dict(n_samples=12, max_depth=3), ("clustered_closest", "clustered_any",
+                                                    "slot_fetch")
+
+    for name, setup in (("cornell", g_cornell_wavefront), ("thin_film", g_thin_film)):
+        r, kw, kernels_used = setup()
+        if r._params(kw["max_depth"])["use_fused"]:
+            raise AssertionError(f"golden {name} did not route to the wavefront integrator")
+        _build.LAUNCHES.clear()
+        r.render(**kw)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        score_golden("[11]", name, r.get_layer("beauty"), counts, (r.height, r.width, 3))
+        for k in kernels_used:
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"golden {name}: kernel {k} never launched")
+        if any(counts.get(k) for k in ("raygen", "mega", "final")):
+            raise AssertionError(f"golden {name} ran the fused pipeline: {counts}")
+    phase_done(11, t0)
+
+    # ---- 12: the wavefront metric (metric 1's scene, bluenoise sampler)
+    t0 = time.perf_counter()
+    pv3, seconds3, launches3 = timed_metric(rw, spp, depth, _build)
+    beauty3 = rw.get_layer("beauty")
+    if not (np.isfinite(beauty3).all() and 0.01 < beauty3.mean() < 10.0):
+        raise AssertionError(f"wavefront metric image is off: mean {beauty3.mean()}")
+    want3 = {"dense_closest": 2 * depth * spp, "dense_any": depth * spp}
+    got3 = {k: launches3.get(k, 0) for k in want3}
+    twins3 = {k: v for k, v in launches3.items() if k.endswith("_twin") and v}
+    if got3 != want3 or twins3:
+        raise AssertionError(f"wavefront metric launches {launches3}, expected {want3} "
+                             f"and no twins")
+    print(json.dumps({
+        "metric": "wavefront_cornell_512x512_16spp_depth5_bluenoise",
+        "mpath_vertices_per_s": pv3 / seconds3 / 1e6,
+        "path_vertices": pv3,
+        "seconds": seconds3,
+        "beauty_mean": float(beauty3.mean()),
+        "card": card,
+        "launches": launches3,
+    }))
+    # one sample: the tracer runs since [9], and each of the wavefront's
+    # several thousand launches a bounce is recorded
+    profile_busy("[12]", "the wavefront metric", rw, depth, spp=1, start_tracer=False)
+    times3 = time_pairs("[12]", {
+        "dense_any": (lambda: dense.intersect_any(tri_w, nee, nee.shape[1]),
+                      lambda: dense.intersect_any_twin(tri_w, nee, nee.shape[1])),
+    }, {})
+    st3 = {"tri": 0}
+    dense.intersect_any_twin(tri_w, nee, nee.shape[1], st3)
+    live3 = int((nee[6] > 0).sum())
+    # a dead ray reads its tmax, a live one its 7 floats; each writes 1 B;
+    # the tests run up to each live lane's first occluder
+    bounds3 = {"dense_any": bound(4 * nee.shape[1] + 24 * live3 + nee.shape[1],
+                                  st3["tri"] * TRI_OPS)}
+    print(f"[12] dense_any: {nee.shape[1]} rays, {live3} live, {st3['tri']} triangle tests, "
+          f"bound {bounds3['dense_any'][0]:.4f} ms ({bounds3['dense_any'][1]})")
+    phase_done(12, t0)
+
+    # ---- 6: records. dense_closest is timed on metric 1's path, dense_any
+    # on the wavefront metric's, the others on metric 2's (shading kernels:
+    # metric 1's times print in [5])
     src = "fredholm_tpu_torch/csrc/"
     table = [
         ("dense_closest", "dense_closest.cu", "fredholm_tpu/accel/pallas_dense.py:93",
          "dense_closest", times1, bounds1, launches1),
+        ("dense_any", "dense_any.cu", "fredholm_tpu/accel/pallas_dense.py:139",
+         "dense_any", times3, bounds3, launches3),
         ("raygen", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "raygen", times2,
          bounds2, launches2),
         ("mega", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega", times2, bounds2,

@@ -26,7 +26,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "fredholm_tpu_torch")
-SOURCES = ("dense_closest.cu", "shade.cu", "clustered.cu", "slot_fetch.cu")
+SOURCES = ("dense_closest.cu", "dense_any.cu", "shade.cu", "clustered.cu", "slot_fetch.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -165,6 +165,8 @@ def lib():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         handle.fh_dense_closest.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
         handle.fh_dense_closest.restype = i
+        handle.fh_dense_any.argtypes = [vp, ll, i, vp, i, vp, vp]
+        handle.fh_dense_any.restype = i
         for name in ("fh_clustered_closest", "fh_clustered_any"):
             fn = getattr(handle, name)
             fn.argtypes = [vp, ll, i, vp, vp, vp, vp, i, i, vp, vp, i, vp, vp, ll,

@@ -31,6 +31,7 @@ import torch
 
 from .. import _build
 from .cluster import CLUSTER_SIZE, N_TRI_GROUPS, SC_GROUP, TLAS, TRI_GROUP
+from .dense import moller_trumbore
 
 # the reference's supercluster ceiling for the clustered path
 # (fredholm_tpu/renderer.py:509)
@@ -94,31 +95,6 @@ def _slab(box, o, inv, t_best):
     """pallas_clustered `_slab`: the box gate of lanes with running best t."""
     tn, tf = _slab_t(box, o, inv)
     return (tn <= tf) & (tf >= 0.0) & (tn <= t_best)
-
-
-def _mt(tri, o, d):
-    """Moller-Trumbore of lanes [L] against triangles tri [9, L, T] (or
-    [9, T]); returns (t, u, v, valid) [L, T] (pallas_clustered `_mt_scalar`)."""
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
-    ox, oy, oz = (c[:, None] for c in o)
-    dx, dy, dz = (c[:, None] for c in d)
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    ok_det = torch.abs(det) > 1e-12
-    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
-    tx = ox - v0x
-    ty = oy - v0y
-    tz = oz - v0z
-    u = (tx * px + ty * py + tz * pz) * inv_det
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    valid = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
-    return t, u, v, valid
 
 
 def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
@@ -228,7 +204,8 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
                 # the cluster's 8 group boxes against its lanes: [L, 8]
                 tn, tf = _slab_t(blocks[10:16, None, base:base + N_TRI_GROUPS],
                                  [x[:, None] for x in lo_], [x[lanes][:, None] for x in inv])
-                t, u, v, valid = _mt(blocks[0:9, None, base:base + CLUSTER_SIZE], lo_, do_)
+                t, u, v, valid = moller_trumbore(
+                    blocks[0:9, None, base:base + CLUSTER_SIZE], lo_, do_)
                 entry_t = best_t[lanes]
                 ok = valid & (t < entry_t[:, None]) & (k_idx < cnt)
                 gt = torch.where(ok, t, torch.inf).view(-1, N_TRI_GROUPS, TRI_GROUP)

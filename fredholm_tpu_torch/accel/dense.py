@@ -1,21 +1,25 @@
-"""Dense closest-hit: every ray against every triangle (scenes <= 1024 faces).
+"""Dense traces: every ray against every triangle (scenes <= 1024 faces).
 
-Wrapper of the CUDA kernel csrc/dense_closest.cu (the port of
-fredholm_tpu/accel/pallas_dense.py `_closest_kernel`) and its plain
-PyTorch twin. Contract, identical to the reference kernel:
+Wrappers of the CUDA kernels csrc/dense_closest.cu (B1, the port of
+fredholm_tpu/accel/pallas_dense.py `_closest_kernel`) and csrc/dense_any.cu
+(B3, `_any_kernel`) and their plain PyTorch twins. Contract, identical to
+the reference kernels:
 
 - Moller-Trumbore with |det| > 1e-12, u >= 0, v >= 0, u + v <= 1, t > 0;
-- strict t < best_t starting from tmax, so on equal t the lowest prim wins;
-- a miss, or a dead lane (tmax <= 0), gives prim -1, t = tmax, u = v = 0.
+- closest hit: strict t < best_t starting from tmax, so on equal t the
+  lowest prim wins; a miss, or a dead lane (tmax <= 0), gives prim -1,
+  t = tmax, u = v = 0;
+- any hit: occluded where some triangle has a valid hit with t < tmax;
+  a dead lane gives False.
 
 Rays come as one [7, stride] float32 buffer (rows ox, oy, oz, dx, dy, dz,
-tmax); the first `m` columns are traced. The wrapper runs the twin only for
-CPU tensors; for CUDA tensors it launches the kernel or raises.
+tmax); the first `m` columns are traced. The wrappers run the twins only
+for CPU tensors; for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -23,37 +27,53 @@ from .. import _build
 
 # triangles per twin chunk: bounds the [rays, chunk] temporaries
 _TWIN_CHUNK = 64
+MAX_FACES = 1024
+
+
+def moller_trumbore(tri, o, d):
+    """Moller-Trumbore of lanes [L] against triangles tri [9, T] (or
+    [9, L, T]) in the kernels' evaluation order (pallas_dense `_mt_one`);
+    o, d: (x, y, z) triples of [L] tensors. Returns (t, u, v, valid), each
+    [L, T]."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok_det = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    valid = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    return t, u, v, valid
+
+
+def _chunks(tri: torch.Tensor, rays: torch.Tensor, m: int):
+    """(start, t, u, v, valid) of the first m rays against each chunk of
+    _TWIN_CHUNK triangles, in triangle order."""
+    o = tuple(rays[k, :m] for k in range(3))
+    d = tuple(rays[k, :m] for k in range(3, 6))
+    for s in range(0, tri.shape[1], _TWIN_CHUNK):
+        yield (s, *moller_trumbore(tri[:, s:s + _TWIN_CHUNK], o, d))
 
 
 def intersect_closest_twin(tri: torch.Tensor, rays: torch.Tensor, m: int) -> Dict:
     """Plain PyTorch closest hit; same contract as the kernel."""
     _build.LAUNCHES["dense_closest_twin"] += 1
-    ox, oy, oz, dx, dy, dz, tmax = (rays[k, :m, None] for k in range(7))
     best_t = rays[6, :m].clone()
     prim = torch.full((m,), -1, dtype=torch.int32, device=rays.device)
     bu = torch.zeros_like(best_t)
     bv = torch.zeros_like(best_t)
-    f = tri.shape[1]
-    for s in range(0, f, _TWIN_CHUNK):
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-            tri[k, None, s:s + _TWIN_CHUNK] for k in range(9)
-        )
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        ok_det = torch.abs(det) > 1e-12
-        inv_det = torch.where(ok_det, 1.0 / det, 0.0)
-        tx = ox - v0x
-        ty = oy - v0y
-        tz = oz - v0z
-        u = (tx * px + ty * py + tz * pz) * inv_det
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        v = (dx * qx + dy * qy + dz * qz) * inv_det
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        valid = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    for s, t, u, v, valid in _chunks(tri, rays, m):
         t = torch.where(valid & (t < best_t[:, None]), t, torch.inf)
         # first minimum == the sequential sweep's strict-< tie rule
         bt, j = torch.min(t, dim=1)
@@ -63,6 +83,26 @@ def intersect_closest_twin(tri: torch.Tensor, rays: torch.Tensor, m: int) -> Dic
         bu = torch.where(improved, torch.gather(u, 1, j[:, None])[:, 0], bu)
         bv = torch.where(improved, torch.gather(v, 1, j[:, None])[:, 0], bv)
     return {"t": best_t, "prim": prim, "u": bu, "v": bv}
+
+
+def intersect_any_twin(tri: torch.Tensor, rays: torch.Tensor, m: int,
+                       stats: Optional[Dict] = None) -> torch.Tensor:
+    """Plain PyTorch any hit: occluded bool [m]; same contract as the
+    kernel. stats (a dict with a "tri" counter), when given, receives the
+    triangle tests the kernel takes for these rays: every live lane tests
+    triangles in order up to and including its first occluder."""
+    _build.LAUNCHES["dense_any_twin"] += 1
+    tmax = rays[6, :m]
+    occ = torch.zeros(m, dtype=torch.bool, device=rays.device)
+    tests = torch.zeros(m, dtype=torch.int64, device=rays.device)
+    for s, t, _, _, valid in _chunks(tri, rays, m):
+        hit = valid & (t < tmax[:, None])
+        first = torch.argmax(hit.to(torch.int8), dim=1)
+        tests += torch.where(occ, 0, torch.where(hit.any(dim=1), first + 1, hit.shape[1]))
+        occ |= hit.any(dim=1)
+    if stats is not None:
+        stats["tri"] += int(tests[tmax > 0.0].sum())
+    return occ
 
 
 def _check(tri: torch.Tensor, rays: torch.Tensor, m: int) -> None:
@@ -88,8 +128,8 @@ def intersect_closest(tri: torch.Tensor, rays: torch.Tensor, m: int) -> Dict:
     if rays.device.type != "cuda":
         raise NotImplementedError(f"no dense kernel for device {rays.device}")
     f = tri.shape[1]
-    if f > 1024:
-        raise NotImplementedError(f"dense kernel takes <= 1024 faces, got {f}")
+    if f > MAX_FACES:
+        raise NotImplementedError(f"dense kernel takes <= {MAX_FACES} faces, got {f}")
     out = {
         "t": torch.empty(m, dtype=torch.float32, device=rays.device),
         "prim": torch.empty(m, dtype=torch.int32, device=rays.device),
@@ -105,3 +145,22 @@ def intersect_closest(tri: torch.Tensor, rays: torch.Tensor, m: int) -> Dict:
     _build.check(err, "dense_closest")
     _build.LAUNCHES["dense_closest"] += 1
     return out
+
+
+def intersect_any(tri: torch.Tensor, rays: torch.Tensor, m: int) -> torch.Tensor:
+    """Occlusion of the first m rays of `rays` by `tri` [9, F]: bool [m]."""
+    _check(tri, rays, m)
+    if rays.device.type == "cpu":
+        return intersect_any_twin(tri, rays, m)
+    if rays.device.type != "cuda":
+        raise NotImplementedError(f"no dense kernel for device {rays.device}")
+    f = tri.shape[1]
+    if f > MAX_FACES:
+        raise NotImplementedError(f"dense kernel takes <= {MAX_FACES} faces, got {f}")
+    occ = torch.empty(m, dtype=torch.bool, device=rays.device)
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    err = _build.lib().fh_dense_any(rays.data_ptr(), rays.stride(0), m, tri.data_ptr(), f,
+                                    occ.data_ptr(), stream)
+    _build.check(err, "dense_any")
+    _build.LAUNCHES["dense_any"] += 1
+    return occ

@@ -1,8 +1,10 @@
 """Host camera state (port of fredholm_tpu/camera.py, host half).
 
 The FPS-style camera (camera.h:22-136) keeps a camera-to-world transform
-and the look-around angles; ray generation itself runs in the raygen
-stage (fused/pt_fused.py and its kernel in csrc/shade.cu).
+and the look-around angles. Ray generation runs in the raygen stage of
+the fused pipeline (fused/pt_fused.py and its kernel in csrc/shade.cu) or,
+for the wavefront integrator, in `pixel_uv` and `sample_ray_thinlens`
+below (fredholm_tpu/camera.py:146-194, stacked [N, 3] layout).
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ import math
 
 import numpy as np
 import torch
+
+from .core.vecmath import normalize, transform_direction, transform_position, vec3
+from .sampling.mappings import sample_concentric_disk
 
 
 def _look_at(origin: np.ndarray, target: np.ndarray, up: np.ndarray) -> np.ndarray:
@@ -99,3 +104,42 @@ class Camera:
             "F": f32(self.f_number),
             "focus": f32(self.focus),
         }
+
+
+# ---------------------------------------------------------------------------
+# ray generation (wavefront integrator)
+
+
+def pixel_uv(px, py, jitter, width: int, height: int):
+    """Film-plane uv from pixel indices + subpixel jitter [N, 2]
+    (pt.cu:438-442): uv in [-aspect, aspect] x [-1, 1], x flipped."""
+    u = (2.0 * (px.to(torch.float32) + jitter[..., 0]) - width) / height
+    v = (2.0 * (py.to(torch.float32) + jitter[..., 1]) - height) / height
+    return torch.stack([-u, v], dim=-1)
+
+
+def sample_ray_thinlens(params, uv, u_lens):
+    """camera.cu:24-53. params: `Camera.device_params`; uv [N, 2] film
+    point; u_lens [N, 2] aperture sample. Returns (origin, direction, pdf)."""
+    f = 1.0 / torch.tan(0.5 * params["fov"])
+    b = params["focus"]
+    a = 1.0 / (1.0 + f - 1.0 / b)
+    lens_radius = 2.0 * f / params["F"]
+
+    zeros = torch.zeros_like(uv[..., 0])
+    p_sensor = vec3(uv[..., 0], uv[..., 1], zeros)
+    p_lens_center = vec3(zeros, zeros, zeros + f)
+
+    p_disk = lens_radius * sample_concentric_disk(u_lens)
+    p_lens = p_lens_center + vec3(p_disk[..., 0], p_disk[..., 1], zeros)
+
+    sensor_to_lens_center = normalize(p_lens_center - p_sensor)
+    p_object = p_sensor + ((a + b) / sensor_to_lens_center[..., 2])[..., None] \
+        * sensor_to_lens_center
+
+    origin = transform_position(params["transform"], p_lens)
+    d = normalize(p_object - p_lens)
+    d = d * torch.tensor([1.0, 1.0, -1.0], dtype=d.dtype, device=d.device)
+    direction = transform_direction(params["transform"], d)
+    pdf = 1.0 / (d[..., 2] * d[..., 2])
+    return origin, direction, pdf

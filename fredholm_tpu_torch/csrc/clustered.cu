@@ -151,30 +151,17 @@ __global__ void __launch_bounds__(kBlock)
               float v0x = __ldg(q), v0y = __ldg(q + ns), v0z = __ldg(q + 2 * ns);
               float e1x = __ldg(q + 3 * ns), e1y = __ldg(q + 4 * ns), e1z = __ldg(q + 5 * ns);
               float e2x = __ldg(q + 6 * ns), e2y = __ldg(q + 7 * ns), e2z = __ldg(q + 8 * ns);
-              // pallas_clustered `_mt_scalar`
-              float px = r.dy * e2z - r.dz * e2y;
-              float py = r.dz * e2x - r.dx * e2z;
-              float pz = r.dx * e2y - r.dy * e2x;
-              float det = e1x * px + e1y * py + e1z * pz;
-              bool ok_det = fabsf(det) > 1e-12f;
-              float inv_det = ok_det ? 1.0f / det : 0.0f;
-              float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-              float u = (tx * px + ty * py + tz * pz) * inv_det;
-              float qx = ty * e1z - tz * e1y;
-              float qy = tz * e1x - tx * e1z;
-              float qz = tx * e1y - ty * e1x;
-              float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-              float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-              bool valid = ok_det && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 0.0f);
-              if (valid && t < best_t) {
+              MtHit h = moller_trumbore(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, v0x, v0y, v0z,
+                                        e1x, e1y, e1z, e2x, e2y, e2z);
+              if (h.valid && h.t < best_t) {
                 if (kAny) {
                   occluded = true;
                   goto done;
                 }
-                best_t = t;
+                best_t = h.t;
                 best_slot = (int)(base + k);
-                bu = u;
-                bv = v;
+                bu = h.u;
+                bv = h.v;
                 best_inst = in;
               }
             }

@@ -197,6 +197,60 @@ __device__ __forceinline__ V3 ray_origin_offset(V3 p, V3 n) {
 }
 
 // ---------------------------------------------------------------------------
+// Moller-Trumbore of one ray against one triangle (v0, edges e1, e2) in the
+// reference's evaluation order (pallas_dense.py `_mt_one`, pallas_clustered.py
+// `_mt_scalar`; twin: accel/dense.py `moller_trumbore`). A hit is valid for
+// |det| > 1e-12, u >= 0, v >= 0, u + v <= 1 and t > 0.
+struct MtHit {
+  float t, u, v;
+  bool valid;
+};
+__device__ __forceinline__ MtHit moller_trumbore(float ox, float oy, float oz, float dx, float dy,
+                                                 float dz, float v0x, float v0y, float v0z,
+                                                 float e1x, float e1y, float e1z, float e2x,
+                                                 float e2y, float e2z) {
+  float px = dy * e2z - dz * e2y;
+  float py = dz * e2x - dx * e2z;
+  float pz = dx * e2y - dy * e2x;
+  float det = e1x * px + e1y * py + e1z * pz;
+  bool ok_det = fabsf(det) > 1e-12f;
+  float inv_det = ok_det ? 1.0f / det : 0.0f;
+  float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
+  float qx = ty * e1z - tz * e1y;
+  float qy = tz * e1x - tx * e1z;
+  float qz = tx * e1y - ty * e1x;
+  MtHit h;
+  h.u = (tx * px + ty * py + tz * pz) * inv_det;
+  h.v = (dx * qx + dy * qy + dz * qz) * inv_det;
+  h.t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  h.valid = ok_det && (h.u >= 0.0f) && (h.v >= 0.0f) && (h.u + h.v <= 1.0f) && (h.t > 0.0f);
+  return h;
+}
+
+// The dense kernels (dense_closest.cu, dense_any.cu) stage the [9, F]
+// triangle SoA (rows v0xyz, e1xyz, e2xyz) into shared memory, row r at
+// r * kDenseMaxTris: 36 KB at the 1024-face limit. Every thread of the
+// block must call it (it ends in a barrier).
+constexpr int kDenseMaxTris = 1024;
+__device__ __forceinline__ void stage_tri_soa(float* s_tri, const float* __restrict__ tri, int f) {
+  for (int k = threadIdx.x; k < 9 * f; k += blockDim.x) {
+    int r = k / f;
+    int c = k - r * f;
+    s_tri[r * kDenseMaxTris + c] = tri[k];
+  }
+  __syncthreads();
+}
+
+// Moller-Trumbore of a ray against staged triangle s
+__device__ __forceinline__ MtHit mt_staged(const float* s_tri, int s, float ox, float oy, float oz,
+                                           float dx, float dy, float dz) {
+  const int m = kDenseMaxTris;
+  return moller_trumbore(ox, oy, oz, dx, dy, dz, s_tri[s], s_tri[m + s], s_tri[2 * m + s],
+                         s_tri[3 * m + s], s_tri[4 * m + s], s_tri[5 * m + s], s_tri[6 * m + s],
+                         s_tri[7 * m + s], s_tri[8 * m + s]);
+}
+
+// ---------------------------------------------------------------------------
 // integer hashing (core/rng.py, shared.h:282-319, sobol.cu, cmj.cu)
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }

@@ -17,7 +17,6 @@
 
 namespace {
 
-constexpr int kMaxTris = 1024;
 constexpr int kBlock = 256;
 
 __global__ void __launch_bounds__(kBlock)
@@ -25,13 +24,8 @@ __global__ void __launch_bounds__(kBlock)
                     const float* __restrict__ tri, int f, float* __restrict__ t_out,
                     int* __restrict__ prim_out, float* __restrict__ u_out,
                     float* __restrict__ v_out) {
-  __shared__ float s_tri[9 * kMaxTris];
-  for (int k = threadIdx.x; k < 9 * f; k += blockDim.x) {
-    int r = k / f;
-    int c = k - r * f;
-    s_tri[r * kMaxTris + c] = tri[k];
-  }
-  __syncthreads();
+  __shared__ float s_tri[9 * kDenseMaxTris];
+  stage_tri_soa(s_tri, tri, f);
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
@@ -43,32 +37,13 @@ __global__ void __launch_bounds__(kBlock)
     float ox = rays[i], oy = rays[stride + i], oz = rays[2 * stride + i];
     float dx = rays[3 * stride + i], dy = rays[4 * stride + i], dz = rays[5 * stride + i];
     for (int s = 0; s < f; ++s) {
-      float v0x = s_tri[0 * kMaxTris + s], v0y = s_tri[1 * kMaxTris + s];
-      float v0z = s_tri[2 * kMaxTris + s];
-      float e1x = s_tri[3 * kMaxTris + s], e1y = s_tri[4 * kMaxTris + s];
-      float e1z = s_tri[5 * kMaxTris + s];
-      float e2x = s_tri[6 * kMaxTris + s], e2y = s_tri[7 * kMaxTris + s];
-      float e2z = s_tri[8 * kMaxTris + s];
-      float px = dy * e2z - dz * e2y;
-      float py = dz * e2x - dx * e2z;
-      float pz = dx * e2y - dy * e2x;
-      float det = e1x * px + e1y * py + e1z * pz;
-      bool ok_det = fabsf(det) > 1e-12f;
-      float inv_det = ok_det ? 1.0f / det : 0.0f;
-      float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-      float u = (tx * px + ty * py + tz * pz) * inv_det;
-      float qx = ty * e1z - tz * e1y;
-      float qy = tz * e1x - tx * e1z;
-      float qz = tx * e1y - ty * e1x;
-      float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-      float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-      bool valid = ok_det && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 0.0f);
+      MtHit h = mt_staged(s_tri, s, ox, oy, oz, dx, dy, dz);
       // strict <: on equal t the lowest prim index wins
-      if (valid && t < best_t) {
-        best_t = t;
+      if (h.valid && h.t < best_t) {
+        best_t = h.t;
         best = s;
-        bu = u;
-        bv = v;
+        bu = h.u;
+        bv = h.v;
       }
     }
   }
@@ -82,7 +57,7 @@ __global__ void __launch_bounds__(kBlock)
 
 extern "C" int fh_dense_closest(const float* rays, long long stride, int m, const float* tri, int f,
                                 float* t, int* prim, float* u, float* v, cudaStream_t stream) {
-  if (f < 1 || f > kMaxTris || m < 1) return (int)cudaErrorInvalidValue;
+  if (f < 1 || f > kDenseMaxTris || m < 1) return (int)cudaErrorInvalidValue;
   k_dense_closest<<<(m + kBlock - 1) / kBlock, kBlock, 0, stream>>>(rays, stride, m, tri, f, t, prim,
                                                                    u, v);
   return (int)cudaGetLastError();

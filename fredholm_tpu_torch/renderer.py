@@ -4,10 +4,17 @@ API the ported slices need).
 Owns the device scene, the camera, the sky (constant or Hosek-Wilkie),
 the directional light, the per-pixel sample counts and the six AOV
 layers, and drives the progressive integrator on `device`: the CUDA card
-unless the caller asks for the CPU. On a CUDA device every stage runs a
-hand-written kernel; on the CPU the same stages run their plain PyTorch
-twins. Scenes of at most 1024 faces trace densely; larger ones through
-the cluster hierarchy (up to 4096 superclusters, as the reference).
+unless the caller asks for the CPU. On a CUDA device every kernel stage
+runs a hand-written kernel; on the CPU the same stages run their plain
+PyTorch twins. Scenes of at most 1024 faces trace densely; larger ones
+through the cluster hierarchy (up to 4096 superclusters, as the
+reference).
+
+Two integrators, routed as the reference's `_config` routes them
+(renderer.py:523-531): the fused pipeline (fused/pt_fused.py) by default,
+the wavefront integrator (integrator/pt.py `render_sample`) where
+`use_fused` is False, `sampler_mode` is "bluenoise", a material has a
+thin film, or the scene has more than 16 area lights.
 
 Left out on purpose (TPU scheduling devices that only re-order work):
 row bands, spp chunking, pixel swizzle and the (w*h) % 128 gate.
@@ -21,9 +28,9 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .fused.cbsdf import ALL_LOBES
 from .fused.pt_fused import MAX_KERNEL_LIGHTS, SKY_CONSTANT, SKY_HOSEK
 from .integrator.pt import make_layers, render_progressive
+from .sampling.sampler import MODE_DEFAULT
 from .scene.device import build_device_scene
 from .scene.types import Scene
 from .sky import hosek as hosek_mod
@@ -53,7 +60,7 @@ def _scene_lobes(scene: Scene) -> tuple:
     return tuple(lobes)
 
 
-def _check_envelope(scene: Scene, lobes: tuple) -> None:
+def _check_envelope(scene: Scene) -> None:
     """Raise NotImplementedError naming what the port does not have yet."""
     if scene.textures or any(
         getattr(m, k) >= 0 for m in scene.materials
@@ -65,13 +72,6 @@ def _check_envelope(scene: Scene, lobes: tuple) -> None:
                   "alpha_texture_id")
     ):
         raise NotImplementedError("textures and alpha cutout are not ported yet")
-    if "thin_film" in lobes:
-        raise NotImplementedError("thin-film interference is not ported yet")
-    n_lights = len(scene.emissive_faces())
-    if n_lights > MAX_KERNEL_LIGHTS:
-        raise NotImplementedError(
-            f"{n_lights} area lights > {MAX_KERNEL_LIGHTS} (the light-table "
-            f"path for more is not ported yet)")
 
 
 class Renderer:
@@ -98,15 +98,20 @@ class Renderer:
         self.sun_direction = np.asarray([0.0, 1.0, 0.0], np.float32)
         self.directional_light: Optional[Dict] = None
         self.seed = 42
+        # the fused pipeline on its envelope; False forces the wavefront
+        # integrator (renderer.py:228-231)
+        self.use_fused = True
+        # "sobol_cmj" (the reference's draws) or "bluenoise" (screen-space
+        # blue-noise dithered Owen-Sobol, wavefront only)
+        self.sampler_mode = MODE_DEFAULT
         self.init_render_states()
 
     # -- scene / sky --------------------------------------------------------
 
     def set_scene(self, scene: Scene):
-        lobes = _scene_lobes(scene)
-        _check_envelope(scene, lobes)
+        _check_envelope(scene)
         self._dev = build_device_scene(scene, self.device)
-        self._lobes = tuple(lobe for lobe in ALL_LOBES if lobe in lobes)
+        self._lobes = _scene_lobes(scene)
         self.scene = scene
         self.init_render_states()
 
@@ -149,6 +154,13 @@ class Renderer:
         self.layers = make_layers(n, self.device)
         self.sample_count = torch.zeros((n,), dtype=torch.int64, device=self.device)
 
+    def _use_fused(self) -> bool:
+        """The fused pipeline's envelope (renderer.py:523-531, without the
+        (w*h) % 128 gate and IBL)."""
+        return (self.use_fused and self.sampler_mode == MODE_DEFAULT
+                and "thin_film" not in self._lobes
+                and self._dev["n_lights"] <= MAX_KERNEL_LIGHTS)
+
     def _params(self, max_depth: int) -> Dict:
         params = {
             "width": self.width,
@@ -161,6 +173,8 @@ class Renderer:
             "sky_mode": self.sky_mode,
             "sky_intensity": self.sky_intensity,
             "sun_direction": self.sun_direction,
+            "use_fused": self._use_fused(),
+            "sampler_mode": self.sampler_mode,
         }
         if self.sky_mode == SKY_HOSEK:
             params["hosek"] = self.hosek_state

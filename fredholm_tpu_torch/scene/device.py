@@ -15,13 +15,21 @@ byte-identical to the reference's numpy path, then uploaded once:
   slot_attrs       [32, K*128]    f32  geometry in slot order
                                        (fused/slot_fetch.py; F > 1024)
 
+and, for the wavefront integrator (integrator/pt.py) on every scene, the
+reference's per-face and per-light SoA (device.py:143-162):
+
+  face_verts / face_normals [F, 3, 3], face_uvs [F, 3, 2] f32, face_mat
+  [F] i32; materials {name: [M] or [M, 3]}; light_verts / light_normals
+  [L, 3, 3], light_uvs [L, 3, 2] f32, light_mat [L] i32 (L >= 1)
+
 Clustered scenes are one BLAS under one identity instance. The reference
 builds slot_attrs only above 2048 faces (a TPU gather cost); its own
 test shows the slot fetch and the row gather bit-identical, so the port
 builds it for every clustered scene.
 
-`dev_from_reference` carries the reference package's own dense tables
-across, so tests can run both packages on literally the same inputs.
+`dev_from_reference` carries the reference package's own dense-scene
+tables across, so tests can run both packages on literally the same
+inputs.
 """
 
 from __future__ import annotations
@@ -39,6 +47,12 @@ from .types import Scene, materials_to_soa
 
 # dense closest-hit envelope (fredholm_tpu/renderer.py dense_threshold)
 DENSE_MAX_FACES = 1024
+
+# the wavefront integrator's tables (module docstring)
+_WAVEFRONT_KEYS = (
+    "face_verts", "face_normals", "face_uvs", "face_mat", "materials",
+    "light_verts", "light_normals", "light_uvs", "light_mat",
+)
 
 # ---------------------------------------------------------------------------
 # fused face-attribute table column layout (pt_fused.py:93-136)
@@ -217,10 +231,15 @@ def tri_soa_np(verts: np.ndarray) -> np.ndarray:
     )
 
 
-def _upload(tables: Dict[str, np.ndarray], n_lights: int, n_faces: int,
-            device) -> Dict:
+def _to_device(v, device):
+    if isinstance(v, dict):
+        return {k: _to_device(x, device) for k, x in v.items()}
     # torch.tensor copies: the inputs may be read-only views
-    dev = {k: torch.tensor(np.asarray(v), device=device) for k, v in tables.items()}
+    return torch.tensor(np.asarray(v), device=device)
+
+
+def _upload(tables: Dict, n_lights: int, n_faces: int, device) -> Dict:
+    dev = {k: _to_device(v, device) for k, v in tables.items()}
     dev["n_lights"] = int(n_lights)
     dev["n_faces"] = int(n_faces)
     return dev
@@ -237,9 +256,9 @@ def build_clustered_tlas(verts: np.ndarray) -> TLAS:
 
 
 def build_host_tables(scene: Scene) -> Dict:
-    """numpy tables: {fused_table, fused_mat_table, light_table} plus
-    tri_soa (dense scenes) or tlas and slot_attrs (clustered scenes), and
-    n_lights / n_faces."""
+    """numpy tables: {fused_table, fused_mat_table, light_table}, the
+    wavefront's face, material and light SoA, tri_soa (dense scenes) or
+    tlas and slot_attrs (clustered scenes), and n_lights / n_faces."""
     if not scene.is_valid():
         raise ValueError("invalid scene")
     n_faces = int(scene.n_faces())
@@ -268,6 +287,7 @@ def build_host_tables(scene: Scene) -> Dict:
         "fused_table": build_fused_table(np_dev),
         "fused_mat_table": build_fused_mat_table(np_dev),
         "light_table": build_light_table(np_dev),
+        **{k: np_dev[k] for k in _WAVEFRONT_KEYS},
         "n_lights": int(lights.shape[0]),
         "n_faces": n_faces,
     }
@@ -295,8 +315,8 @@ _TRI_KEYS = ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")
 
 
 def dev_from_reference(np_dev: Dict, device) -> Dict:
-    """The reference's `build_device_scene` output (arrays as numpy) ->
-    the port's dev dict, on the same table bytes."""
+    """The reference's `build_device_scene` output of a dense scene (arrays
+    as numpy) -> the port's dev dict, on the same table bytes."""
     tri = np.concatenate(
         [np.asarray(np_dev["tri_soa"][k], np.float32).reshape(1, -1)
          for k in _TRI_KEYS]
@@ -306,5 +326,6 @@ def dev_from_reference(np_dev: Dict, device) -> Dict:
         "fused_mat_table": np.asarray(np_dev["fused_mat_table"], np.float32),
         "light_table": np.asarray(np_dev["light_table"], np.float32),
         "tri_soa": tri,
+        **{k: np_dev[k] for k in _WAVEFRONT_KEYS},
     }
     return _upload(tables, np_dev["n_lights"], np_dev["n_faces"], device)

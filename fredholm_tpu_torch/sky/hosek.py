@@ -4,9 +4,10 @@ Port of fredholm_tpu/sky/hosek.py (arhosek.h:144-322): from (turbidity,
 albedo, solar elevation) a 9-coefficient configuration and a radiance
 scale per RGB channel, by quintic bezier interpolation over elevation and
 linear blending over albedo and turbidity. The coefficient dataset is the
-reference's assets/hosek_rgb.npz, read by path. The radiance itself is
-evaluated per direction in the shading stage (fused/pt_fused.eval_sky_c
-and its kernel in csrc/common.cuh).
+reference's assets/hosek_rgb.npz, read by path. The radiance is evaluated
+per direction by `sky_radiance` (the wavefront integrator, stacked
+layout) or in the fused shading stage (fused/pt_fused.eval_sky_c and its
+kernel in csrc/common.cuh).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import functools
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..assets import asset_path
 
@@ -61,6 +63,25 @@ def cook_state(turbidity: float, albedo: float, solar_elevation: float) -> Dict:
             configs += wa * rem * np.einsum("e,ceo->co", w, cfg_table[:, a, ti0 + 1])
             radiances += wa * rem * (rad_table[:, a, ti0 + 1] @ w)
     return {"configs": configs.astype(np.float32), "radiances": radiances.astype(np.float32)}
+
+
+def sky_radiance(state: Dict, theta, gamma):
+    """Radiance [N, 3] for view zenith angles theta [N] and angles to the
+    sun gamma [N] (arhosek.cu:103-127; sky/hosek.py:98-122). state holds
+    `configs` [3, 9] and `radiances` [3] as tensors on the device. Theta is
+    clamped at the horizon, where the reference clamps it."""
+    c = state["configs"]
+    theta = torch.clamp(theta, max=0.5 * np.pi - 1e-3)
+    cos_g = torch.cos(gamma)[..., None]
+    cos_t = torch.cos(theta)[..., None]
+    exp_m = torch.exp(c[:, 4] * gamma[..., None])
+    ray_m = cos_g * cos_g
+    mie_m = (1.0 + cos_g * cos_g) / torch.pow(
+        torch.clamp(1.0 + c[:, 8] * c[:, 8] - 2.0 * c[:, 8] * cos_g, min=1e-8), 1.5)
+    zenith = torch.sqrt(torch.clamp(cos_t, min=0.0))
+    radiance = (1.0 + c[:, 0] * torch.exp(c[:, 1] / (cos_t + 0.01))) * (
+        c[:, 2] + c[:, 3] * exp_m + c[:, 5] * ray_m + c[:, 6] * mie_m + c[:, 7] * zenith)
+    return torch.clamp(radiance * state["radiances"], min=0.0)
 
 
 def sun_elevation_from_direction(sun_dir: np.ndarray) -> float:

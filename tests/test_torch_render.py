@@ -48,6 +48,9 @@ def reference_tables():
         "tri_soa": {k: np.asarray(v) for k, v in dev["tri_soa"].items()},
         "n_lights": dev["n_lights"],
         "n_faces": dev["n_faces"],
+        # the wavefront integrator's face, material and light tables
+        **{k: np.asarray(dev[k]) for k in tdev._WAVEFRONT_KEYS if k != "materials"},
+        "materials": {k: np.asarray(v) for k, v in dev["materials"].items()},
     }
 
 
@@ -84,6 +87,10 @@ def test_dev_from_reference_round_trip(reference_tables):
     for k, v in port.items():
         if isinstance(v, torch.Tensor):
             assert torch.equal(carried[k], v), k
+        elif isinstance(v, dict):
+            assert set(carried[k]) == set(v), k
+            for name, x in v.items():
+                assert torch.equal(carried[k][name], x), (k, name)
         else:
             assert carried[k] == v, k
 
@@ -140,10 +147,12 @@ def test_get_layer_and_envelope():
     cfg = kernels.pf.FusedConfig(32, 32, 2, 2, r._lobes)
     with pytest.raises(NotImplementedError, match="lobes"):
         kernels._lobe_mask(cfg)
+    # a thin film routes the scene to the wavefront integrator
     scene = cornell_box()
     scene.materials[1].thin_film_thickness = 300.0
-    with pytest.raises(NotImplementedError, match="thin-film"):
-        Renderer(8, 8, device="cpu").set_scene(scene)
+    r = Renderer(8, 8, device="cpu")
+    r.set_scene(scene)
+    assert "thin_film" in r._lobes and not r._params(2)["use_fused"]
 
 
 def _metal_row(cls, **kw):
