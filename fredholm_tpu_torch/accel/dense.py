@@ -27,6 +27,8 @@ from .. import _build
 
 # triangles per twin chunk: bounds the [rays, chunk] temporaries
 _TWIN_CHUNK = 64
+# the dense kernels' shared-memory table (csrc/common.cuh kDenseMaxTris);
+# larger scenes trace clustered (fredholm_tpu/renderer.py dense_threshold)
 MAX_FACES = 1024
 
 

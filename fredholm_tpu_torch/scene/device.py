@@ -42,11 +42,9 @@ import torch
 from ..accel.bvh import build_bvh
 from ..accel.cluster import TLAS, build_tlas, extract_hierarchy
 from ..accel.clustered import prepare_clustered
+from ..accel.dense import MAX_FACES as DENSE_MAX_FACES
 from ..fused.slot_fetch import build_slot_attrs
 from .types import Scene, materials_to_soa
-
-# dense closest-hit envelope (fredholm_tpu/renderer.py dense_threshold)
-DENSE_MAX_FACES = 1024
 
 # the wavefront integrator's tables (module docstring)
 _WAVEFRONT_KEYS = (

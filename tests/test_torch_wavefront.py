@@ -135,6 +135,42 @@ def test_bsdf_matches_reference(lobes_on):
         _close(a, b, "sample " + name, tol)
 
 
+def test_helpers_off_the_path_match_reference():
+    """Ported helpers the integrator does not call: the uniform disk, the
+    Lambert lobe, Schlick's fresnel and the 2D blue-noise draw."""
+    from fredholm_tpu.bsdf import fresnel as jf
+    from fredholm_tpu.bsdf import lobes as jl
+    from fredholm_tpu.sampling import bluenoise as jbn
+    from fredholm_tpu.sampling import mappings as jm
+    from fredholm_tpu_torch.bsdf import fresnel as tf
+    from fredholm_tpu_torch.bsdf import lobes as tl
+    from fredholm_tpu_torch.sampling import bluenoise as tbn
+    from fredholm_tpu_torch.sampling import mappings as tm
+
+    x = _bsdf_inputs(5)
+    j = {k: jnp.asarray(v) for k, v in x.items() if k != "sp"}
+    t = {k: torch.as_tensor(v) for k, v in x.items() if k != "sp"}
+    _close(tm.sample_uniform_disk(t["v"]), jm.sample_uniform_disk(j["v"]), "uniform disk")
+    alb = x["sp"]["base_color"]
+    for name, a, b in zip(("wi", "f", "pdf"),
+                          tl.lambert_sample(torch.as_tensor(alb), t["wo"], t["v"]),
+                          jl.lambert_sample(jnp.asarray(alb), j["wo"], j["v"])):
+        _close(a, b, "lambert " + name)
+    f0 = x["sp"]["specular_color"]
+    _close(tf.fresnel_schlick(t["u"][:, None], torch.as_tensor(f0)),
+           jf.fresnel_schlick(j["u"][:, None], jnp.asarray(f0)), "schlick")
+    px = np.arange(N, dtype=np.int64) % 40
+    py = np.arange(N, dtype=np.int64) // 40
+    shift_t = tbn.bn_shift(torch.as_tensor(px), torch.as_tensor(py))
+    shift_j = jbn.bn_shift(jnp.asarray(px, jnp.uint32), jnp.asarray(py, jnp.uint32))
+    np.testing.assert_array_equal(shift_t.numpy(), np.asarray(shift_j))
+    idx = np.arange(N, dtype=np.int64) * 7
+    np.testing.assert_array_equal(
+        tbn.blue_noise_2d(shift_t, torch.as_tensor(idx), 1030, 99).numpy(),
+        np.asarray(jbn.blue_noise_2d(shift_j, jnp.asarray(idx, jnp.uint32), 1030,
+                                     jnp.uint32(99))))
+
+
 # ---------------------------------------------------------------------------
 # whole-slice renders
 
