@@ -35,7 +35,6 @@ from fredholm_tpu.scene.device import world_face_data as j_wfd
 from fredholm_tpu.scene.procedural import terrain as j_terrain
 from fredholm_tpu.scene.types import materials_to_soa as j_mats
 from fredholm_tpu_torch import _build
-from fredholm_tpu_torch.accel import bvh as tbvh
 from fredholm_tpu_torch.accel import clustered as tcl
 from fredholm_tpu_torch.fused import slot_fetch as tsf
 from fredholm_tpu_torch.scene import device as tdev
@@ -77,9 +76,17 @@ def both_tables(request):
         scene, j_scene = hosek_sweep_scene(), bench._sweep_scene()
     else:
         scene, j_scene = terrain(n=48, size=6.0), j_terrain(n=48, size=6.0)
-    vw = tdev.world_face_data(scene)["verts"]
-    port_bvh = tbvh.build_bvh(vw.min(axis=1), vw.max(axis=1))
-    return scene, j_scene, port_bvh, tdev.build_host_tables(scene), _reference_numpy_path(j_scene)
+    # the BVH the upload builds, kept as it is built (the numpy builder
+    # takes seconds on the sweep, so it runs once)
+    built = []
+    real = tdev.build_bvh
+    tdev.build_bvh = lambda lo, hi: built.append(real(lo, hi)) or built[-1]
+    try:
+        host = tdev.build_host_tables(scene)
+    finally:
+        tdev.build_bvh = real
+    assert len(built) == 1
+    return scene, j_scene, built[0], host, _reference_numpy_path(j_scene)
 
 
 def test_hosek_sweep_scene_is_the_bench_scene():

@@ -22,11 +22,15 @@ its modules against the reference's, on the CPU:
 - `render(1); render(1) == render(2)` on the wavefront;
 - routing: the port takes the wavefront exactly where the reference's
   `_config(...).use_fused` is False, apart from its (w*h) % 128 gate.
+
+The file holds seven tests, each looping over its cases: pytest-xdist
+hands files out largest (most tests) first, and a file of few tests runs
+beside the suite's longest file (tests/test_instanced.py) instead of
+ahead of it.
 """
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from fredholm_tpu.bsdf import bsdf as jb
@@ -52,22 +56,22 @@ SAMPLE_F_TOL = dict(rtol=2e-3, atol=1e-4)
 # sampler
 
 
-@pytest.mark.parametrize("mode", ["sobol_cmj", "bluenoise"])
-def test_sampler_draws_bit_equal(mode):
+def test_sampler_draws_bit_equal():
     rng = np.random.default_rng(3)
     width, height = 40, 25
     image_idx = rng.permutation(width * height).astype(np.uint32)
     n_spp = rng.integers(0, 1 << 20, width * height).astype(np.uint32)
     seed = 0xDEADBEEF
-    sj = js.init_sampler_state(jnp.asarray(image_idx), jnp.asarray(n_spp), width * height,
-                               jnp.uint32(seed), mode=mode, width=width)
-    st = ts.init_sampler_state(torch.as_tensor(image_idx.astype(np.int64)),
-                               torch.as_tensor(n_spp.astype(np.int64)), width * height, seed,
-                               mode=mode, width=width)
-    for draw in ("1d", "2d", "1d", "2d", "2d", "3d", "1d", "4d", "2d") * 2:
-        uj, sj = getattr(js, "sample_" + draw)(sj)
-        ut, st = getattr(ts, "sample_" + draw)(st)
-        np.testing.assert_array_equal(ut.numpy(), np.asarray(uj), err_msg=draw)
+    for mode in ("sobol_cmj", "bluenoise"):
+        sj = js.init_sampler_state(jnp.asarray(image_idx), jnp.asarray(n_spp), width * height,
+                                   jnp.uint32(seed), mode=mode, width=width)
+        st = ts.init_sampler_state(torch.as_tensor(image_idx.astype(np.int64)),
+                                   torch.as_tensor(n_spp.astype(np.int64)), width * height,
+                                   seed, mode=mode, width=width)
+        for draw in ("1d", "2d", "1d", "2d", "2d", "3d", "1d", "4d", "2d") * 2:
+            uj, sj = getattr(js, "sample_" + draw)(sj)
+            ut, st = getattr(ts, "sample_" + draw)(st)
+            np.testing.assert_array_equal(ut.numpy(), np.asarray(uj), err_msg=f"{mode} {draw}")
 
 
 # ---------------------------------------------------------------------------
@@ -113,26 +117,27 @@ def _close(a, b, what, tol=TOL):
     np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=what, **tol)
 
 
-@pytest.mark.parametrize("lobes_on", LOBE_SETS, ids=lambda ls: "+".join(ls))
-def test_bsdf_matches_reference(lobes_on):
+def test_bsdf_matches_reference():
     x = _bsdf_inputs(17)
     j = {k: jnp.asarray(v) for k, v in x.items() if k != "sp"}
     t = {k: torch.as_tensor(v) for k, v in x.items() if k != "sp"}
-    ctx_j = jb.setup(j["wo"], {k: jnp.asarray(v) for k, v in x["sp"].items()}, j["entering"],
-                     lobes_on)
-    ctx_t = tb.setup(t["wo"], {k: torch.as_tensor(v) for k, v in x["sp"].items()},
-                     t["entering"], lobes_on)
-    for key in ("pmf", "coat_albedo", "spec_albedo", "sheen_albedo", "coat_absorption",
-                "metal_n", "metal_k", "eta", "coat_alpha", "spec_alpha"):
-        _close(ctx_t[key], ctx_j[key], key)
-    _close(tb.eval(ctx_t, t["wo"], t["wi"]), jb.eval(ctx_j, j["wo"], j["wi"]), "eval")
-    _close(tb.eval_pdf(ctx_t, t["wo"], t["wi"]), jb.eval_pdf(ctx_j, j["wo"], j["wi"]),
-           "eval_pdf")
-    out_t = tb.sample(ctx_t, t["wo"], t["u"], t["v"])
-    out_j = jb.sample(ctx_j, j["wo"], j["u"], j["v"])
-    for name, a, b, tol in zip(("wi", "f", "pdf"), out_t, out_j,
-                               (SAMPLE_TOL, SAMPLE_F_TOL, SAMPLE_F_TOL)):
-        _close(a, b, "sample " + name, tol)
+    for lobes_on in LOBE_SETS:
+        tag = "+".join(lobes_on) + ": "
+        ctx_j = jb.setup(j["wo"], {k: jnp.asarray(v) for k, v in x["sp"].items()},
+                         j["entering"], lobes_on)
+        ctx_t = tb.setup(t["wo"], {k: torch.as_tensor(v) for k, v in x["sp"].items()},
+                         t["entering"], lobes_on)
+        for key in ("pmf", "coat_albedo", "spec_albedo", "sheen_albedo", "coat_absorption",
+                    "metal_n", "metal_k", "eta", "coat_alpha", "spec_alpha"):
+            _close(ctx_t[key], ctx_j[key], tag + key)
+        _close(tb.eval(ctx_t, t["wo"], t["wi"]), jb.eval(ctx_j, j["wo"], j["wi"]), tag + "eval")
+        _close(tb.eval_pdf(ctx_t, t["wo"], t["wi"]), jb.eval_pdf(ctx_j, j["wo"], j["wi"]),
+               tag + "eval_pdf")
+        out_t = tb.sample(ctx_t, t["wo"], t["u"], t["v"])
+        out_j = jb.sample(ctx_j, j["wo"], j["u"], j["v"])
+        for name, a, b, tol in zip(("wi", "f", "pdf"), out_t, out_j,
+                                   (SAMPLE_TOL, SAMPLE_F_TOL, SAMPLE_F_TOL)):
+            _close(a, b, tag + "sample " + name, tol)
 
 
 def test_helpers_off_the_path_match_reference():
@@ -224,33 +229,21 @@ def _renders(setup, want_clustered):
     return t.layers, {k: np.asarray(v) for k, v in j.layers.items()}
 
 
-@pytest.fixture(scope="module")
-def renders_a():
-    return _renders(_setup_a, False)
-
-
-@pytest.fixture(scope="module")
-def renders_b():
-    return _renders(_setup_b, True)
-
-
-@pytest.mark.parametrize("key", LAYERS)
-def test_many_lights_bluenoise_sun_matches_reference(renders_a, key):
-    got, want = renders_a
-    np.testing.assert_allclose(got[key].numpy(), want[key], rtol=2e-4, atol=2e-4, err_msg=key)
-
-
-@pytest.mark.parametrize("key", LAYERS)
-def test_thin_film_matches_reference(renders_b, key):
-    got, want = renders_b
-    np.testing.assert_allclose(got[key].numpy(), want[key], rtol=2e-4, atol=2e-4, err_msg=key)
-
-
-@pytest.mark.parametrize("which", ["a", "b"])
-def test_path_vertices_and_lane_slots_match(renders_a, renders_b, which):
-    got, want = renders_a if which == "a" else renders_b
+def _check_slice(got, want):
+    """Six layers at 2e-4 and the counters exactly."""
+    for key in LAYERS:
+        np.testing.assert_allclose(got[key].numpy(), want[key], rtol=2e-4, atol=2e-4,
+                                   err_msg=key)
     for k in ("n_path_vertices", "n_lane_slots"):
         assert float(got[k]) == float(want[k]) > 0, k
+
+
+def test_many_lights_bluenoise_sun_matches_reference():
+    _check_slice(*_renders(_setup_a, False))
+
+
+def test_thin_film_matches_reference():
+    _check_slice(*_renders(_setup_b, True))
 
 
 def test_progressive_accumulation_is_exact():
@@ -299,29 +292,27 @@ def _route_cases():
     }
 
 
-@pytest.mark.parametrize("case", list(_route_cases()))
-def test_routing_matches_reference(case):
-    scene_fn, opts = _route_cases()[case]
-    routes = []
-    for cls, mat in ((JRenderer, JMaterial), (Renderer, Material)):
-        r = cls(width=16, height=16, **({"device": "cpu"} if cls is Renderer else {}))
-        r.set_scene(scene_fn(cls, mat))
-        for k in ("use_fused", "sampler_mode"):
-            if k in opts:
-                setattr(r, k, opts[k])
-        if opts.get("hosek"):
-            r.set_directional_light((2.0, 1.9, 1.8), (0.35, 0.75, 0.3), angle=0.5)
-            r.load_arhosek_sky(3.0, 0.3)
-        routes.append(r._config(1, 3).use_fused if cls is JRenderer
-                      else r._params(3)["use_fused"])
-    assert routes[0] == routes[1], routes
-    assert routes[1] == (case in ("default", "16_lights", "clustered_hosek_sun"))
+def test_routing_matches_reference():
+    """Each case routes alike in both packages (16x16, a multiple of 128
+    pixels). At 10x10 the reference's pixel-count gate sends the scene to
+    its wavefront while the port keeps the fused pipeline (the two agree
+    at 2e-4, tests/test_fused_integrator.py)."""
+    for case, (scene_fn, opts) in _route_cases().items():
+        routes = []
+        for cls, mat in ((JRenderer, JMaterial), (Renderer, Material)):
+            r = cls(width=16, height=16, **({"device": "cpu"} if cls is Renderer else {}))
+            r.set_scene(scene_fn(cls, mat))
+            for k in ("use_fused", "sampler_mode"):
+                if k in opts:
+                    setattr(r, k, opts[k])
+            if opts.get("hosek"):
+                r.set_directional_light((2.0, 1.9, 1.8), (0.35, 0.75, 0.3), angle=0.5)
+                r.load_arhosek_sky(3.0, 0.3)
+            routes.append(r._config(1, 3).use_fused if cls is JRenderer
+                          else r._params(3)["use_fused"])
+        assert routes[0] == routes[1], (case, routes)
+        assert routes[1] == (case in ("default", "16_lights", "clustered_hosek_sun")), case
 
-
-def test_routing_leaves_the_pixel_count_gate_out():
-    """The reference sends 10x10 (not a multiple of 128 pixels) to its
-    wavefront; the port keeps the fused pipeline (the two agree at 2e-4,
-    tests/test_fused_integrator.py)."""
     j = JRenderer(width=10, height=10)
     j.set_scene(j_cornell())
     t = Renderer(10, 10, device="cpu")
