@@ -16,6 +16,10 @@ from fredholm_tpu.fused.cvec import V3 as JV3
 from fredholm_tpu_torch.fused import cbsdf as tb
 from fredholm_tpu_torch.fused.cvec import V3 as TV3
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 N = 257
 TOL = dict(rtol=1e-5, atol=1e-5)
 SAMPLE_TOL = dict(rtol=2e-4, atol=1e-4)

@@ -42,6 +42,10 @@ from fredholm_tpu_torch.scene.procedural import hosek_sweep_scene, terrain
 
 from test_bvh import _sphere_blas
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 BVH_FIELDS = ("bounds_min", "bounds_max", "left", "right", "leaf_start",
               "leaf_count", "axis", "prim_order")
 TLAS_FIELDS = ("sc_aabb", "sc_mcount", "sc_order", "sc_key", "cl_meta", "blocks",

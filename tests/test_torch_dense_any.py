@@ -22,6 +22,10 @@ from fredholm_tpu_torch import _build
 from fredholm_tpu_torch.accel import dense
 from test_torch_dense import _soup
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 EDGE = 5e-5
 T_END = 1e-5
 

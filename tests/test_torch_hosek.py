@@ -41,6 +41,10 @@ from fredholm_tpu_torch.sky import hosek as th
 
 from test_torch_shade import _compare, _to_jax
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 LAYERS = ("beauty", "position", "normal", "depth", "texcoord", "albedo")
 SUN = (0.35, 0.75, 0.3)
 

@@ -24,6 +24,10 @@ from fredholm_tpu_torch import Renderer, cornell_box
 from fredholm_tpu_torch.scene import device as tdev
 from fredholm_tpu_torch.scene.procedural import sphere_array_test
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 LAYERS = ("beauty", "position", "normal", "depth", "texcoord", "albedo")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -16,6 +16,10 @@ from fredholm_tpu_torch.fused import cmappings as tmap
 from fredholm_tpu_torch.sampling import cmj as tcmj
 from fredholm_tpu_torch.sampling import sobol as tsobol
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 EDGES = [0, 1, 2**31 - 1, 2**31, 2**32 - 1, 0xDEADBEEF, 12345]
 
 

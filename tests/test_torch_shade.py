@@ -25,6 +25,10 @@ from fredholm_tpu_torch.fused import pt_fused as tpf
 from fredholm_tpu_torch.fused.cvec import V3 as TV3
 from fredholm_tpu_torch.scene.device import COL, GEOM_COLS, build_device_scene
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 W = H = 32
 

@@ -45,6 +45,10 @@ from fredholm_tpu_torch.sampling import sampler as ts
 from fredholm_tpu_torch.scene.procedural import sphere_array_test
 from fredholm_tpu_torch.scene.types import Material
 
+# one intra-op thread: the suite runs its files in parallel processes, and
+# torch's default of a thread per core makes them fight for the cores
+torch.set_num_threads(1)
+
 LAYERS = ("beauty", "position", "normal", "depth", "texcoord", "albedo")
 N = 257
 TOL = dict(rtol=1e-5, atol=1e-5)
