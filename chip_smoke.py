@@ -42,10 +42,23 @@ exits non-zero without the final `ok` line:
     render(1) after 2 warm-up spp, depth 5, sampler_mode "bluenoise",
     with its launch counts (B1 160, B3 80, twins 0), the profiler's busy
     share and top kernels, and B3's time vs its twin beside its bound
+13. the ray-resident traversal (B7, FREDHOLM_TRAV_RESIDENT=1) at metric
+    2's bounce shapes, on a gate-on sweep's d = 1 rays (the closest block,
+    147,456 rays, and the occlusion blocks, 442,368): bit-equal to its
+    twins; hit and occlusion masks equal to B4/B5's on the same rays, prim
+    differing only at near-ties; B7 and B4/B5 timed in turns beside their
+    bounds, and B7's fixed cost (every page walked, none staged)
+14. the goldens terrain_cluster, hosek_sun and metal_row with the gate on,
+    and metal_row with FREDHOLM_COMPACT=1 as well; B7 launched, twins 0
+15. the resident metric: metric 2 with the gate on, with its launches per
+    spp (B4 1, B7 closest 4, B7 any 5, B5 0, B6 1) and busy share
+16. the FMA probe (P1) vs its twin ([8,128] float32, [16,128] bfloat16),
+    then the card's float32/bfloat16 FMA and memory-stream rates
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -381,6 +394,48 @@ def profile_busy(tag, what, r, depth, spp=2, start_tracer=True):
         print(f"{tag}   {v:.3f} ms {k[:90]}")
 
 
+@contextlib.contextmanager
+def environ(**kv):
+    """Set environment variables for a phase and restore them after."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def turns(tag, pairs, reps=10):
+    """{name: (ms of a, ms of b)} for two implementations of one function,
+    timed in turns a, b, b, a (CUDA events)."""
+    out = {}
+    for name, (label_a, fa, label_b, fb) in pairs.items():
+        a1 = cuda_ms(fa, reps)
+        b1 = cuda_ms(fb, reps)
+        b2 = cuda_ms(fb, reps)
+        a2 = cuda_ms(fa, reps)
+        out[name] = ((a1 + a2) / 2, (b1 + b2) / 2)
+        print(f"{tag} {name}: {label_a} {out[name][0]:.4f} ms, {label_b} {out[name][1]:.4f} ms "
+              f"(turns: {a1:.4f}, {b1:.4f}, {b2:.4f}, {a2:.4f})")
+    return out
+
+
+def host_ms(fn):
+    """One call's time on the host clock, bracketed by synchronizes, and
+    its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - w0) * 1e3, res
+
+
 def first_nee_rays(r, wavefront):
     """The [7, M] ray buffer of the first any-hit trace of one render(1)
     at depth 1 through the wavefront integrator: a real bounce's
@@ -414,6 +469,7 @@ def main() -> None:
     import fredholm_tpu_torch as ft
     from fredholm_tpu_torch import _build
     from fredholm_tpu_torch.accel import clustered, dense
+    from fredholm_tpu_torch.experimental import resident
     from fredholm_tpu_torch.fused import kernels, slot_fetch
     from fredholm_tpu_torch.fused import pt_fused as pf
     from fredholm_tpu_torch.integrator import pt as wavefront
@@ -424,6 +480,7 @@ def main() -> None:
         sphere_array_test,
         terrain,
     )
+    from fredholm_tpu_torch.tools import probe_bf16 as probe
 
     dev = torch.device("cuda")
     print(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -910,9 +967,207 @@ def main() -> None:
           f"bound {bounds3['dense_any'][0]:.4f} ms ({bounds3['dense_any'][1]})")
     phase_done(12, t0)
 
+    # ---- 13: the ray-resident traversal (B7) vs its twins and vs B4/B5 at
+    # metric 2's bounce shapes
+    t0 = time.perf_counter()
+    gate = {clustered.RESIDENT_ENV: "1"}
+    with environ(**gate):
+        rr = sweep_renderer(SW, SH)
+        rdev = rr._dev
+        rc = rdev["clusters"]
+        if "res_meta" not in rc or not resident.routes(rc, coherent=False):
+            raise AssertionError("the gate-on sweep carries no resident tables")
+        # the d = 1 input of a gate-on render, stage by stage as
+        # render_sample_fused runs it: raygen, the coherent d = 0 trace
+        # (B4 + B6), mega at d = 0
+        p13 = rr._params(5)
+        cfg13 = pf.make_config(rdev, p13)
+        sv13, usv13 = pf.pack_scalars(p13, ns, dev)
+        n_spp13 = torch.full((ns,), 3, dtype=torch.int64, device=dev)
+        st13, si13, r0 = kernels.raygen(cfg13, sv13, usv13, n_spp13)
+        tr0 = pf.trace_stage(cfg13, rdev, r0, ns, 1, 0, coherent=True)
+        _, r13, _, _ = kernels.mega(cfg13, 0, sv13, usv13, rdev, n_spp13, si13, st13, r0, None,
+                                    tr0)
+        occ13 = r13[:, :n_occ * ns]
+        rad13 = r13[:, n_occ * ns:nb2 * ns]
+        # the stages before d = 1 do not depend on the gate
+        print(f"[13] d = 1 rays equal to [9]'s gate-off ones: {torch.equal(r13, rays)}")
+        rk = resident.intersect_closest_resident(rc, rad13)
+        ok13 = resident.intersect_any_resident(rc, occ13)
+        twin_ms = {}
+        twin_ms["resident_closest"], rt = host_ms(
+            lambda: resident.intersect_closest_twin(rc, rad13))
+        twin_ms["resident_any"], ot13 = host_ms(lambda: resident.intersect_any_twin(rc, occ13))
+        for k in ("hit", "prim", "t", "u", "v"):
+            if not torch.equal(rk[k], rt[k]):
+                raise AssertionError(f"B7 closest differs from its twin in {k}: "
+                                     f"{int((rk[k] != rt[k]).sum())} lanes")
+        if not torch.equal(ok13, ot13):
+            raise AssertionError(f"B7 any-hit differs from its twin on "
+                                 f"{int((ok13 != ot13).sum())} lanes")
+        results["resident_closest"] = max((rk[k] - rt[k]).abs().max().item()
+                                           for k in ("t", "u", "v"))
+        results["resident_any"] = (ok13 != ot13).float().mean().item()
+        print(f"[13] B7 vs twin: closest {rad13.shape[1]} rays ({int(rk['hit'].sum())} hits), "
+              f"any {occ13.shape[1]} rays ({int(ok13.sum())} occluded): bit-equal; twin "
+              f"{twin_ms['resident_closest']:.1f} ms and {twin_ms['resident_any']:.1f} ms "
+              "(host clock, one call each)")
+        # the other design on the same rays
+        b4 = clustered.intersect_closest_clustered(rc, rad13)
+        b5 = clustered.intersect_any_clustered(rc, occ13)
+        h7, h4 = rk["prim"] >= 0, b4["prim"] >= 0
+        if not torch.equal(h7, h4) or not torch.equal(ok13, b5):
+            raise AssertionError(f"B7 and B4/B5 masks differ: closest "
+                                 f"{int((h7 != h4).sum())}, any {int((ok13 != b5).sum())}")
+        diff = h7 & (rk["prim"] != b4["prim"])
+        rel = (rk["t"] - b4["t"]).abs() / b4["t"].abs().clamp(min=1.0)
+        tie = diff & (rel <= TIE_REL)
+        same = h7 & ~diff
+        dt = (rk["t"] - b4["t"])[same].abs().max().item() if bool(same.any()) else 0.0
+        print(f"[13] B7 vs B4/B5 on the same rays: hit and occlusion masks equal; prim "
+              f"differs on {int(diff.sum())} lanes, {int(tie.sum())} of them near-ties "
+              f"(relative t <= {TIE_REL}); max |dt| where prim agrees {dt:.3g}")
+        if int((diff & ~tie).sum()):
+            raise AssertionError("B7 and B4 report different triangles away from a tie")
+        times13 = turns("[13]", {
+            "closest": ("B4", lambda: clustered.intersect_closest_clustered(rc, rad13),
+                        "B7", lambda: resident.intersect_closest_resident(rc, rad13)),
+            "any": ("B5", lambda: clustered.intersect_any_clustered(rc, occ13),
+                    "B7", lambda: resident.intersect_any_resident(rc, occ13)),
+        })
+        # B7's fixed cost: every block walks every page with a barrier each.
+        # Inputs that isolate it: all lanes dead (each block leaves at once),
+        # and one live lane a block whose ray misses the root box (each
+        # block tests every page box, stages none)
+        dead13 = rad13.clone()
+        dead13[6] = -1.0
+        lone13 = dead13.clone()
+        first = torch.arange(0, lone13.shape[1], resident.RES_BLOCK, device=dev)
+        lone13[0:3, first] = rc["root_aabb"][0:3, 0:1] - 1000.0
+        lone13[3:6, first] = -(3.0 ** -0.5)
+        lone13[6, first] = 1e9
+        turns("[13]", {"B7 closest floor": (
+            "all lanes dead", lambda: resident.intersect_closest_resident(rc, dead13),
+            f"one lane a block, missing ({first.numel()} blocks)",
+            lambda: resident.intersect_closest_resident(rc, lone13))})
+        if int(resident.intersect_closest_resident(rc, lone13)["hit"].sum()):
+            raise AssertionError("a ray that misses the root box hit")
+        sc13, sa13 = {}, {}
+        resident.intersect_closest_twin(rc, rad13, sc13)
+        resident.intersect_any_twin(rc, occ13, sa13)
+    blocks13 = rc.get("res_blocks", rc["blocks"])
+    page_bytes = 4 * blocks13.shape[0] * resident.P_CL * 128
+    bounds13 = {}
+    for name, st_, view, out_b in (("resident_closest", sc13, rad13, 16),
+                                   ("resident_any", sa13, occ13, 1)):
+        n_bytes = (ray_bytes(view) + out_b * view.shape[1] + 4 * resident.META_ROWS
+                   * st_["meta_cols"] + page_bytes * st_["pages"] + 4 * 6)
+        n_ops = (st_["page"] + st_["cluster"] + st_["group"]) * SLAB_OPS + st_["tri"] * TRI_OPS
+        bounds13[name] = bound(n_bytes, n_ops)
+        print(f"[13] {name}: {view.shape[1]} rays, {int((view[6] > 0).sum())} live; slab tests "
+              f"page {st_['page']} cluster {st_['cluster']} group {st_['group']}, triangle "
+              f"tests {st_['tri']}; distinct pages {st_['pages']} and meta columns "
+              f"{st_['meta_cols']}; staged per block of {resident.RES_BLOCK} rays: "
+              f"{st_['block_pages']} pages ({st_['block_pages'] * page_bytes / 1e9:.3f} GB) "
+              f"and {st_['block_meta_cols']} meta columns; bound "
+              f"{bounds13[name][0]:.4f} ms ({bounds13[name][1]})")
+    b45 = {"closest": bounds2["clustered_closest"], "any": bounds2["clustered_any"]}
+    for name, key in (("closest", "resident_closest"), ("any", "resident_any")):
+        print(f"[13] {name}: B7 {times13[name][1]:.4f} ms (bound {bounds13[key][0]:.4f}), "
+              f"B4/B5 {times13[name][0]:.4f} ms (bound at [9]'s rays {b45[name][0]:.4f}); "
+              f"B7 / B4-B5 = {times13[name][1] / times13[name][0]:.3f}")
+    times_res = {"resident_closest": (times13["closest"][1], twin_ms["resident_closest"]),
+                 "resident_any": (times13["any"][1], twin_ms["resident_any"])}
+    phase_done(13, t0)
+
+    # ---- 14: goldens with the gate on (and compaction on metal_row)
+    t0 = time.perf_counter()
+    for name, setup, extra in (("terrain_cluster", g_terrain_cluster, {}),
+                               ("hosek_sun", g_hosek_sun, {}),
+                               ("metal_row", g_metal_row, {}),
+                               ("metal_row", g_metal_row, {"FREDHOLM_COMPACT": "1"})):
+        with environ(**gate, **extra):
+            r, kw = setup()
+            if "res_meta" not in r._dev["clusters"]:
+                raise AssertionError(f"golden {name}: no resident tables with the gate on")
+            if r._params(kw["max_depth"])["compact"] != extra.get("FREDHOLM_COMPACT", "0"):
+                raise AssertionError(f"golden {name}: compaction mode not read")
+            _build.LAUNCHES.clear()
+            r.render(**kw)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+        score_golden("[14]" + (" compact" if extra else ""), name, r.get_layer("beauty"),
+                     counts, (r.height, r.width, 3))
+        for k in ("resident_closest", "resident_any", "clustered_closest", "mega"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"golden {name} (gate on): kernel {k} never launched")
+    phase_done(14, t0)
+
+    # ---- 15: the resident metric (metric 2 with the gate on)
+    t0 = time.perf_counter()
+    with environ(**gate):
+        pv4, seconds4, launches4 = timed_metric(rr, spp2, depth2, _build)
+        profile_busy("[15]", "the resident metric", rr, depth2, start_tracer=False)
+    beauty4 = rr.get_layer("beauty")
+    if not (np.isfinite(beauty4).all() and 0.01 < beauty4.mean() < 100.0):
+        raise AssertionError(f"resident metric image is off: mean {beauty4.mean()}")
+    # d = 0 traces coherently (B4 + B6); d = 1-4 bounce closest (B7) and
+    # occlusion (B7 any); the final stage occlusion only (no emissive faces)
+    want4 = {"clustered_closest": spp2, "slot_fetch": spp2,
+             "resident_closest": (depth2 - 1) * spp2, "resident_any": depth2 * spp2,
+             "mega": depth2 * spp2, "raygen": spp2, "final": spp2}
+    got4 = {k: launches4.get(k, 0) for k in want4}
+    twins4 = {k: v for k, v in launches4.items() if k.endswith("_twin") and v}
+    if got4 != want4 or twins4 or launches4.get("clustered_any"):
+        raise AssertionError(f"resident metric launches {launches4}, expected {want4}, no B5 "
+                             f"and no twins")
+    print(json.dumps({
+        "metric": "hosek_sweep_512x288_8spp_depth5_resident",
+        "mpath_vertices_per_s": pv4 / seconds4 / 1e6,
+        "path_vertices": pv4,
+        "seconds": seconds4,
+        "beauty_mean": float(beauty4.mean()),
+        "card": card,
+        "launches": launches4,
+        "launches_per_spp": {k: v / spp2 for k, v in launches4.items()},
+    }))
+    phase_done(15, t0)
+
+    # ---- 16: the FMA probe (P1) vs its twin, then the card's rates
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    xf = torch.tensor(rng.uniform(-2, 2, (8, 128)), dtype=torch.float32, device=dev)
+    xb = torch.tensor(rng.uniform(-2, 2, (16, 128)), dtype=torch.float32,
+                      device=dev).to(torch.bfloat16)
+    kf, tf = probe.fma_chain(xf), probe.fma_chain_twin(xf)
+    kb, tb = probe.fma_chain(xb), probe.fma_chain_twin(xb)
+    rel_f = ((kf - tf).abs() / tf.abs()).max().item()
+    print(f"[16] P1 f32 [8,128]: max relative difference to the twin {rel_f:.3g} (fmaf rounds "
+          f"once, the twin twice; limit 1e-5); bf16 [16,128]: bit-equal "
+          f"{torch.equal(kb, tb)}")
+    if rel_f > 1e-5 or not torch.equal(kb, tb):
+        raise AssertionError("the FMA probe differs from its twin")
+    results["probe_fma"] = (kf - tf).abs().max().item()
+    _build.LAUNCHES.clear()
+    rates = probe.measure(iters=5)
+    launches5 = dict(_build.LAUNCHES)
+    for name, (ms, rate) in rates.items():
+        unit = "GFLOP/s" if name.startswith("fma") else "GB/s (read + write)"
+        print(f"[16] {name}: {ms:.4f} ms, {rate:.1f} {unit} on {card}")
+    x16 = torch.full((1 << 16, 128), 0.5, dtype=torch.float32, device=dev)
+    times16 = {"probe_fma": (rates["fma f32"][0],
+                             cuda_ms(lambda: probe.fma_chain_twin(x16), 1))}
+    bounds16 = {"probe_fma": bound(8 * x16.numel(), probe.FLOPS_PER_ELEMENT * x16.numel())}
+    print(f"[16] probe_fma f32 [{x16.shape[0]},128]: kernel {times16['probe_fma'][0]:.4f} ms, "
+          f"twin {times16['probe_fma'][1]:.4f} ms, bound {bounds16['probe_fma'][0]:.4f} ms "
+          f"({bounds16['probe_fma'][1]}); {probe.FLOPS_PER_ELEMENT} flops an element")
+    phase_done(16, t0)
+
     # ---- 6: records. dense_closest is timed on metric 1's path, dense_any
-    # on the wavefront metric's, the others on metric 2's (shading kernels:
-    # metric 1's times print in [5])
+    # on the wavefront metric's, the resident kernels on metric 2's bounce
+    # rays with the gate on (launches: the resident metric's), probe_fma on
+    # its probe run, the others on metric 2's (shading kernels: metric 1's
+    # times print in [5])
     src = "fredholm_tpu_torch/csrc/"
     table = [
         ("dense_closest", "dense_closest.cu", "fredholm_tpu/accel/pallas_dense.py:93",
@@ -931,6 +1186,12 @@ def main() -> None:
          "clustered_any", times2, bounds2, launches2),
         ("slot_fetch", "slot_fetch.cu", "fredholm_tpu/fused/slot_fetch.py:76", "slot_fetch",
          times2, bounds2, launches2),
+        ("resident_closest", "resident.cu", "fredholm_tpu/experimental/pallas_resident.py:105",
+         "resident_closest", times_res, bounds13, launches4),
+        ("resident_any", "resident.cu", "fredholm_tpu/experimental/pallas_resident.py:105",
+         "resident_any", times_res, bounds13, launches4),
+        ("probe_fma", "probe_fma.cu", "tools/probe_bf16.py:61", "probe_fma", times16, bounds16,
+         launches5),
     ]
     kern_json = [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,

@@ -26,7 +26,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "fredholm_tpu_torch")
-SOURCES = ("dense_closest.cu", "dense_any.cu", "shade.cu", "clustered.cu", "slot_fetch.cu")
+SOURCES = ("dense_closest.cu", "dense_any.cu", "shade.cu", "clustered.cu", "slot_fetch.cu",
+           "resident.cu", "probe_fma.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -172,6 +173,12 @@ def lib():
             fn.argtypes = [vp, ll, i, vp, vp, vp, vp, i, i, vp, vp, i, vp, vp, ll,
                            vp, vp, vp, vp, vp, vp, vp, vp]
             fn.restype = i
+        for name in ("fh_resident_closest", "fh_resident_any"):
+            fn = getattr(handle, name)
+            fn.argtypes = [vp, ll, i, vp, vp, i, i, vp, ll, vp, vp, vp, vp, vp, vp]
+            fn.restype = i
+        handle.fh_probe_fma.argtypes = [vp, vp, ll, i, ctypes.c_float, ctypes.c_float, vp]
+        handle.fh_probe_fma.restype = i
         handle.fh_slot_fetch.argtypes = [vp, i, vp, ll, vp, vp]
         handle.fh_slot_fetch.restype = i
         for name in ("fh_raygen", "fh_mega", "fh_final"):

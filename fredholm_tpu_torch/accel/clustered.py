@@ -24,6 +24,7 @@ launch the kernel or raise.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -38,6 +39,9 @@ from .dense import moller_trumbore
 MAX_SUPERCLUSTERS = 4096
 # slots are int32 ids; keep them exact in the float32 planes they meet
 MAX_SLOTS = 1 << 24
+
+# the reference's gate of the ray-resident traversal (experimental/resident.py)
+RESIDENT_ENV = "FREDHOLM_TRAV_RESIDENT"
 
 # the tables the kernels walk; the TLAS's front-to-back orders and region
 # boxes (sc_order, sc_key, reg_aabb) stay on the host until a kernel uses
@@ -65,6 +69,13 @@ def prepare_clustered(tlas: TLAS, device) -> Dict:
            for k in _TABLE_KEYS}
     out["identity"] = bool(tlas.inst_identity)
     out["n_instances"] = tlas.n_instances
+    if tlas.n_instances == 1 and os.environ.get(RESIDENT_ENV, "0") == "1":
+        # single-instance scenes also carry the ray-resident traversal's
+        # dense-by-cid tables (pallas_clustered.py:141-147), only when its
+        # gate is on
+        from ..experimental.resident import prepare_resident
+
+        out.update(prepare_resident(tlas, device))
     return out
 
 
@@ -95,6 +106,74 @@ def _slab(box, o, inv, t_best):
     """pallas_clustered `_slab`: the box gate of lanes with running best t."""
     tn, tf = _slab_t(box, o, inv)
     return (tn <= tf) & (tf >= 0.0) & (tn <= t_best)
+
+
+def walk_cluster(blocks, base: int, cnt: int, o, d, inv, entry_t, any_hit: bool,
+                 count: bool = False):
+    """The kernels' walk of one cluster's 16-triangle groups (triangle
+    columns base.. of `blocks`, cnt of them) for L lanes: origins o,
+    directions d, inverse directions inv (triples of [L]), running best t
+    entry_t [L]. Each group is gated by its box against the best t the
+    earlier groups left, its triangles by the strict `t < best` rule. The
+    cluster's 128 triangles are tested at once and the walk replayed in
+    group order, which gives the sequential result exactly.
+
+    Returns (res, walk). res: the closest hit's (win, t, u, v), each [L],
+    win the lane's winning triangle in the cluster (-1: none); any-hit: a
+    bool [L], the lane is occluded. walk (count=True, else None): the
+    group box tests "grp" and triangle tests "tri" the kernel takes (any
+    hit: up to each lane's first hit), and masks "grp_read" [8] and
+    "tri_read" [128] of the boxes and triangles tested."""
+    dev = entry_t.device
+    g_idx = torch.arange(N_TRI_GROUPS, device=dev)
+    k_idx = torch.arange(CLUSTER_SIZE, device=dev)
+    n_grp = min(N_TRI_GROUPS, -(-cnt // TRI_GROUP))
+    # the cluster's 8 group boxes against its lanes: [L, 8]
+    tn, tf = _slab_t(blocks[10:16, None, base:base + N_TRI_GROUPS],
+                     [x[:, None] for x in o], [x[:, None] for x in inv])
+    t, u, v, valid = moller_trumbore(blocks[0:9, None, base:base + CLUSTER_SIZE], o, d)
+    ok = valid & (t < entry_t[:, None]) & (k_idx < cnt)
+    gt = torch.where(ok, t, torch.inf).view(-1, N_TRI_GROUPS, TRI_GROUP)
+    # per group: its first minimum (the sequential strict-< rule)
+    g_t, g_k = torch.min(gt, dim=2)
+    exists = g_idx * TRI_GROUP < cnt
+    walk = None
+    if any_hit:
+        gate = (tn <= tf) & (tf >= 0.0) & (tn <= entry_t[:, None]) & exists
+        hitg = gate & (g_t < entry_t[:, None])
+        has = hitg.any(dim=1)
+        if count:
+            # the kernel stops at its first hit: groups up to the first hit
+            # group fg, triangles of fg up to its first hit
+            fg = torch.where(has, hitg.to(torch.int8).argmax(dim=1), N_TRI_GROUPS)
+            ok3 = ok.view(-1, N_TRI_GROUPS, TRI_GROUP)
+            first_k = ok3.to(torch.int8).argmax(dim=2)
+            walked = gate & (g_idx[None] < fg[:, None])
+            tris = walked[:, :, None] & (k_idx < cnt).view(1, N_TRI_GROUPS, TRI_GROUP)
+            tris |= ((g_idx[None] == fg[:, None])[:, :, None]
+                     & (k_idx[:TRI_GROUP] <= first_k[:, :, None]))
+            walk = {"grp": int(torch.clamp(fg + 1, max=n_grp).sum()), "tri": int(tris.sum()),
+                    "grp_read": (g_idx[None] <= fg[:, None]).any(dim=0) & exists,
+                    "tri_read": tris.any(dim=0).view(-1)}
+        return has, walk
+    cur = entry_t
+    win = torch.full_like(g_k, -1)[:, 0]
+    n_tri = 0
+    tri_read = torch.zeros(CLUSTER_SIZE, dtype=torch.bool, device=dev)
+    for gi in range(n_grp):
+        gate = (tn[:, gi] <= tf[:, gi]) & (tf[:, gi] >= 0.0) & (tn[:, gi] <= cur)
+        if count and bool(gate.any()):
+            k0, k1 = gi * TRI_GROUP, min(cnt, (gi + 1) * TRI_GROUP)
+            n_tri += int(gate.sum()) * (k1 - k0)
+            tri_read[k0:k1] = True
+        better = gate & (g_t[:, gi] < cur)
+        cur = torch.where(better, g_t[:, gi], cur)
+        win = torch.where(better, gi * TRI_GROUP + g_k[:, gi], win)
+    if count:
+        walk = {"grp": entry_t.numel() * n_grp, "tri": n_tri, "grp_read": g_idx < n_grp,
+                "tri_read": tri_read}
+    kk = torch.clamp(win, min=0)[:, None]
+    return (win, cur, torch.gather(u, 1, kk)[:, 0], torch.gather(v, 1, kk)[:, 0]), walk
 
 
 def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
@@ -130,8 +209,6 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
     sc_mcount = c["sc_mcount"].cpu().numpy()
     inst_sc = c["inst_sc"].cpu().numpy()
     identity = c["identity"]
-    g_idx = torch.arange(N_TRI_GROUPS, device=dev)
-    k_idx = torch.arange(CLUSTER_SIZE, device=dev)
 
     # with stats: the tests taken, and a mask per table of the entries read
     n_slots = blocks.shape[1]
@@ -199,60 +276,25 @@ def _traverse_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Di
                 mark("cl_ref", col)
                 cnt = int(cl_meta[6, col])
                 base = int(cl_meta[7, col]) * CLUSTER_SIZE
-                n_grp = min(N_TRI_GROUPS, -(-cnt // TRI_GROUP))
-                lo_, do_ = [x[lanes] for x in o], [x[lanes] for x in d]
-                # the cluster's 8 group boxes against its lanes: [L, 8]
-                tn, tf = _slab_t(blocks[10:16, None, base:base + N_TRI_GROUPS],
-                                 [x[:, None] for x in lo_], [x[lanes][:, None] for x in inv])
-                t, u, v, valid = moller_trumbore(
-                    blocks[0:9, None, base:base + CLUSTER_SIZE], lo_, do_)
-                entry_t = best_t[lanes]
-                ok = valid & (t < entry_t[:, None]) & (k_idx < cnt)
-                gt = torch.where(ok, t, torch.inf).view(-1, N_TRI_GROUPS, TRI_GROUP)
-                # per group: its first minimum (the sequential strict-< rule)
-                g_t, g_k = torch.min(gt, dim=2)
-                exists = g_idx * TRI_GROUP < cnt
+                res, walk = walk_cluster(blocks, base, cnt, [x[lanes] for x in o],
+                                         [x[lanes] for x in d], [x[lanes] for x in inv],
+                                         best_t[lanes], any_hit, stats is not None)
+                if walk is not None:
+                    count("slab", walk["grp"])
+                    count("tri", walk["tri"])
+                    mark("grp_box", base + torch.nonzero(walk["grp_read"]).flatten())
+                    mark("tri", base + torch.nonzero(walk["tri_read"]).flatten())
                 if any_hit:
-                    gate = (tn <= tf) & (tf >= 0.0) & (tn <= entry_t[:, None]) & exists
-                    hitg = gate & (g_t < entry_t[:, None])
-                    has = hitg.any(dim=1)
-                    occ[lanes] = has
-                    if stats is not None:
-                        # the kernel stops at its first hit: groups up to the
-                        # first hit group fg, triangles of fg up to its first hit
-                        fg = torch.where(has, hitg.to(torch.int8).argmax(dim=1), N_TRI_GROUPS)
-                        ok3 = ok.view(-1, N_TRI_GROUPS, TRI_GROUP)
-                        first_k = ok3.to(torch.int8).argmax(dim=2)
-                        walked = gate & (g_idx[None] < fg[:, None])
-                        tris = walked[:, :, None] & (k_idx < cnt).view(1, N_TRI_GROUPS, TRI_GROUP)
-                        tris |= ((g_idx[None] == fg[:, None])[:, :, None]
-                                 & (k_idx[:TRI_GROUP] <= first_k[:, :, None]))
-                        count("slab", int(torch.clamp(fg + 1, max=n_grp).sum()))
-                        count("tri", int(tris.sum()))
-                        tested = (g_idx[None] <= fg[:, None]).any(dim=0) & exists
-                        mark("grp_box", base + g_idx[tested])
-                        mark("tri", base + k_idx[tris.any(dim=0).view(-1)])
+                    occ[lanes] = res
                     continue
-                cur = entry_t
-                win = torch.full_like(g_k, -1)[:, 0]
-                for gi in range(n_grp):
-                    gate = (tn[:, gi] <= tf[:, gi]) & (tf[:, gi] >= 0.0) & (tn[:, gi] <= cur)
-                    if stats is not None and bool(gate.any()):
-                        k0, k1 = gi * TRI_GROUP, min(cnt, (gi + 1) * TRI_GROUP)
-                        count("tri", int(gate.sum()) * (k1 - k0))
-                        mark("tri", slice(base + k0, base + k1))
-                    better = gate & (g_t[:, gi] < cur)
-                    cur = torch.where(better, g_t[:, gi], cur)
-                    win = torch.where(better, gi * TRI_GROUP + g_k[:, gi], win)
-                count("slab", lanes.numel() * n_grp)
-                mark("grp_box", slice(base, base + n_grp))
+                win, t_w, u_w, v_w = res
                 hit = win >= 0
                 hl, kk = lanes[hit], win[hit]
-                best_t[hl] = cur[hit]
+                best_t[hl] = t_w[hit]
                 slot[hl] = (base + kk).to(torch.int32)
                 prim[hl] = blocks[9, base + kk].to(torch.int32)
-                bu[hl] = torch.gather(u[hit], 1, kk[:, None])[:, 0]
-                bv[hl] = torch.gather(v[hit], 1, kk[:, None])[:, 0]
+                bu[hl] = u_w[hit]
+                bv[hl] = v_w[hit]
                 inst[hl] = i
     if stats is not None:
         # the kernel reads row 9 (prim) of each lane's final slot; every

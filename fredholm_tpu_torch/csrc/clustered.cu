@@ -53,28 +53,12 @@ struct Tables {
   int identity;
 };
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float inv_dir(float d) {
-  const float eps = 1e-12f;
-  return 1.0f / (fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d);
-}
-
 // pallas_clustered `_slab`: box as lo.xyz at p[0..2 * s], hi.xyz at
 // p[3..5 * s] (s = row stride of the table)
 __device__ __forceinline__ bool slab(const float* __restrict__ p, long long s, const Ray& r,
                                      float t_best) {
-  float t1x = (__ldg(p) - r.ox) * r.ix;
-  float t2x = (__ldg(p + 3 * s) - r.ox) * r.ix;
-  float t1y = (__ldg(p + s) - r.oy) * r.iy;
-  float t2y = (__ldg(p + 4 * s) - r.oy) * r.iy;
-  float t1z = (__ldg(p + 2 * s) - r.oz) * r.iz;
-  float t2z = (__ldg(p + 5 * s) - r.oz) * r.iz;
-  float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-  float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-  return (tn <= tf) && (tf >= 0.0f) && (tn <= t_best);
+  return slab_box(__ldg(p), __ldg(p + s), __ldg(p + 2 * s), __ldg(p + 3 * s), __ldg(p + 4 * s),
+                  __ldg(p + 5 * s), r, t_best);
 }
 
 template <bool kAny>
@@ -93,28 +77,9 @@ __global__ void __launch_bounds__(kBlock)
   const long long ns = tb.n_slots;
   const long long nc = (long long)tb.n_sc * kScGroup;
   if (tmax > 0.0f) {
-    Ray w;
-    w.ox = rays[i];
-    w.oy = rays[stride + i];
-    w.oz = rays[2 * stride + i];
-    w.dx = rays[3 * stride + i];
-    w.dy = rays[4 * stride + i];
-    w.dz = rays[5 * stride + i];
-    w.ix = inv_dir(w.dx);
-    w.iy = inv_dir(w.dy);
-    w.iz = inv_dir(w.dz);
-    // root-box exit clamp (pallas_clustered.py:303-321)
-    {
-      const float* rb = tb.root;
-      float t1x = (rb[0] - w.ox) * w.ix, t2x = (rb[3 * 8] - w.ox) * w.ix;
-      float t1y = (rb[8] - w.oy) * w.iy, t2y = (rb[4 * 8] - w.oy) * w.iy;
-      float t1z = (rb[2 * 8] - w.oz) * w.iz, t2z = (rb[5 * 8] - w.oz) * w.iz;
-      float rtn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      float rtf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      bool hit_root = (rtn <= rtf) && (rtf >= 0.0f);
-      float clamp = hit_root ? rtf * 1.0001f + 1e-4f : 0.0f;
-      best_t = fminf(best_t, clamp);
-    }
+    const Ray w = make_ray(rays[i], rays[stride + i], rays[2 * stride + i], rays[3 * stride + i],
+                           rays[4 * stride + i], rays[5 * stride + i]);
+    best_t = fminf(best_t, root_exit_clamp(tb.root, w));
     for (int in = 0; in < tb.n_inst; ++in) {
       if (!slab(tb.inst_aabb + in, tb.n_inst, w, best_t)) continue;
       Ray r = w;

@@ -227,6 +227,62 @@ __device__ __forceinline__ MtHit moller_trumbore(float ox, float oy, float oz, f
   return h;
 }
 
+// A ray with its inverse direction: the operands of the slab tests of the
+// clustered (clustered.cu) and ray-resident (resident.cu) traversals.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+// pallas_clustered `_inv_dir`
+__device__ __forceinline__ float inv_dir(float d) {
+  const float eps = 1e-12f;
+  return 1.0f / (fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d);
+}
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, float dy,
+                                        float dz) {
+  Ray r;
+  r.ox = ox;
+  r.oy = oy;
+  r.oz = oz;
+  r.dx = dx;
+  r.dy = dy;
+  r.dz = dz;
+  r.ix = inv_dir(dx);
+  r.iy = inv_dir(dy);
+  r.iz = inv_dir(dz);
+  return r;
+}
+
+// Slab entry and exit distances of ray r against box (lo.xyz, hi.xyz), in
+// the evaluation order of pallas_clustered `_slab` (twin: clustered.py
+// `_slab_t`).
+__device__ __forceinline__ void slab_t(float lox, float loy, float loz, float hix, float hiy,
+                                       float hiz, const Ray& r, float& tn, float& tf) {
+  float t1x = (lox - r.ox) * r.ix, t2x = (hix - r.ox) * r.ix;
+  float t1y = (loy - r.oy) * r.iy, t2y = (hiy - r.oy) * r.iy;
+  float t1z = (loz - r.oz) * r.iz, t2z = (hiz - r.oz) * r.iz;
+  tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+}
+
+// pallas_clustered `_slab`: the box gate of a ray with running best t
+__device__ __forceinline__ bool slab_box(float lox, float loy, float loz, float hix, float hiy,
+                                         float hiz, const Ray& r, float t_best) {
+  float tn, tf;
+  slab_t(lox, loy, loz, hix, hiy, hiz, r, tn, tf);
+  return (tn <= tf) && (tf >= 0.0f) && (tn <= t_best);
+}
+
+// The root-box exit clamp of a ray's initial best t (pallas_clustered.py
+// :303-321): just past its exit from the root box rb ([6, 8], column 0),
+// or 0 when it misses the box.
+__device__ __forceinline__ float root_exit_clamp(const float* __restrict__ rb, const Ray& r) {
+  float rtn, rtf;
+  slab_t(rb[0], rb[8], rb[2 * 8], rb[3 * 8], rb[4 * 8], rb[5 * 8], r, rtn, rtf);
+  return (rtn <= rtf) && (rtf >= 0.0f) ? rtf * 1.0001f + 1e-4f : 0.0f;
+}
+
 // The dense kernels (dense_closest.cu, dense_any.cu) stage the [9, F]
 // triangle SoA (rows v0xyz, e1xyz, e2xyz) into shared memory, row r at
 // r * kDenseMaxTris: 36 KB at the 1024-face limit. Every thread of the

@@ -21,7 +21,12 @@ Dense scenes trace every block with one closest-hit call. Clustered
 scenes split occlusion off (pt_fused.py:1272-1294): the blocks that need
 only a boolean (`FusedConfig.occ_blocks`, a prefix of the buffer) ride
 the any-hit kernel, the rest (a suffix) the closest-hit kernel, whose
-hit slots key the attribute fetch (fused/slot_fetch.py).
+hit slots key the attribute fetch (fused/slot_fetch.py). With
+FREDHOLM_TRAV_RESIDENT=1 the incoherent traces (d > 0 and the final
+stage) take the ray-resident traversal (experimental/resident.py), whose
+hits carry no slot: their shading reads geometry by prim from
+fused_table. FREDHOLM_COMPACT packs live rays ahead of each trace
+(experimental/compact.py).
 
 uint32 planes (n_spp, sample_idx, usv) are int64 tensors (core/rng.py).
 Lane i is pixel i (no swizzle; the whole frame is one band).
@@ -150,6 +155,8 @@ class FusedConfig(NamedTuple):
     lobes_on: tuple
     sky_mode: int = SKY_CONSTANT
     has_dl: bool = False
+    # wavefront compaction around the traces (experimental/compact.py)
+    compact: str = "0"
 
     @property
     def has_area(self) -> bool:
@@ -866,35 +873,64 @@ def final_twin(cfg: FusedConfig, sv, tables: Dict, state, rays, pending, tr: Tra
 # orchestrator
 
 
-def trace(dev: Dict, rays, b0: int, nb: int, n: int, any_hit: bool = False):
-    """Trace ray blocks [b0, b0 + nb) of the buffer `rays` in place (a
-    column view): clustered scenes through accel/clustered.py, dense ones
-    through accel/dense.py (closest hit only)."""
-    view = rays[:, b0 * n:(b0 + nb) * n]
+def _trace_view(dev: Dict, view, any_hit: bool, coherent: bool):
     if "clusters" in dev:
-        from ..accel.clustered import intersect_any_clustered, intersect_closest_clustered
+        from ..accel import clustered
+        from ..experimental import resident
 
-        fn = intersect_any_clustered if any_hit else intersect_closest_clustered
-        return fn(dev["clusters"], view)
+        c = dev["clusters"]
+        if resident.routes(c, coherent):
+            fn = resident.intersect_any_resident if any_hit else \
+                resident.intersect_closest_resident
+        else:
+            fn = clustered.intersect_any_clustered if any_hit else \
+                clustered.intersect_closest_clustered
+        return fn(c, view)
     from ..accel.dense import intersect_closest
 
     assert not any_hit, "dense scenes trace every block with closest hit"
     return intersect_closest(dev["tri_soa"], view, view.shape[1])
 
 
+def trace(dev: Dict, rays, b0: int, nb: int, n: int, any_hit: bool = False,
+          coherent: bool = False, compact: bool = False):
+    """Trace ray blocks [b0, b0 + nb) of the buffer `rays` (a column view):
+    clustered scenes through accel/clustered.py (B4/B5), or, for an
+    incoherent trace with FREDHOLM_TRAV_RESIDENT=1 on a scene with the
+    resident tables, experimental/resident.py (B7, no hit slots); dense
+    ones through accel/dense.py (closest hit only). coherent defaults to
+    False as the reference's `_trace_c` (pt_fused.py:1103-1180); only the
+    primary trace is coherent. With compact, live rays are packed to the
+    front first and the results restored to lane order
+    (experimental/compact.py), bit for bit."""
+    view = rays[:, b0 * n:(b0 + nb) * n]
+    if not compact:
+        return _trace_view(dev, view, any_hit, coherent)
+    from ..experimental import compact as cp
+
+    dest = cp.partition_dest(view[6] > 0.0)
+    res = _trace_view(dev, cp.compact_rays(dest, view), any_hit, coherent)
+    return cp.uncompact_occ(dest, res) if any_hit else cp.uncompact_hits(dest, res)
+
+
 def trace_stage(cfg: FusedConfig, dev: Dict, rays, n: int, n_blocks: int,
-                n_occ: int) -> Traced:
+                n_occ: int, coherent: bool = False) -> Traced:
     """The traces of one stage input: any-hit over the first n_occ blocks,
     closest hit over the rest of the first n_blocks, and (clustered scenes)
     the slot fetch of the closest hits where the shading reads them: the
-    "rad" block, and the light block of scenes with emissive faces."""
+    "rad" block, and the light block of scenes with emissive faces. Hits
+    without slots (B7) leave the shading to read geometry by prim from
+    fused_table."""
+    from ..experimental import compact as cp
     from .slot_fetch import fetch_geom_by_slot
 
-    occ = trace(dev, rays, 0, n_occ, n, any_hit=True) if n_occ else None
+    compact = cp.enabled(cfg.compact, "clusters" not in dev)
+    kw = dict(coherent=coherent, compact=compact)
+    occ = trace(dev, rays, 0, n_occ, n, any_hit=True, **kw) if n_occ else None
     n_cl = n_blocks - n_occ
-    hits = trace(dev, rays, n_occ, n_cl, n) if n_cl else None
+    hits = trace(dev, rays, n_occ, n_cl, n, **kw) if n_cl else None
     geom = None
-    if hits is not None and "slot_attrs" in dev:
+    if hits is not None and "slot" in hits and "slot_attrs" in dev:
         geom = fetch_geom_by_slot(dev["slot_attrs"], hits["slot"])
     return Traced(hits, occ, geom)
 
@@ -908,6 +944,7 @@ def make_config(dev: Dict, params: Dict) -> FusedConfig:
         lobes_on=tuple(params["lobes_on"]),
         sky_mode=params.get("sky_mode", SKY_CONSTANT),
         has_dl="directional_light" in params,
+        compact=params.get("compact", "0"),
     )
 
 
@@ -919,7 +956,9 @@ def render_sample_fused(dev: Dict, params: Dict, n_spp):
     Each stage goes through its wrapper (accel/, fused/kernels.py,
     fused/slot_fetch.py): on CUDA tensors that is a hand kernel, on CPU
     tensors the twin. Clustered scenes split occlusion off (the reference's
-    default for them, pt_fused.py:1458-1595)."""
+    default for them, pt_fused.py:1458-1595). The primary trace is
+    coherent; the bounce and final traces are not, and take the
+    ray-resident traversal (B7) where `trace` says."""
     from . import kernels
 
     cfg = make_config(dev, params)
@@ -933,7 +972,8 @@ def render_sample_fused(dev: Dict, params: Dict, n_spp):
     pending = None
     aov = None
     for d in range(cfg.max_depth):
-        tr = (trace_stage(cfg, dev, rays, n, 1, 0) if d == 0
+        # the primary trace is coherent; the bounces' are not
+        tr = (trace_stage(cfg, dev, rays, n, 1, 0, coherent=True) if d == 0
               else trace_stage(cfg, dev, rays, n, nb, n_occ))
         state, rays, pending, aov_d = kernels.mega(
             cfg, d, sv, usv, dev, n_spp, sample_idx, state, rays, pending, tr)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .experimental import compact
 from .fused.pt_fused import MAX_KERNEL_LIGHTS, SKY_CONSTANT, SKY_HOSEK
 from .integrator.pt import make_layers, render_progressive
 from .sampling.sampler import MODE_DEFAULT
@@ -175,6 +176,8 @@ class Renderer:
             "sun_direction": self.sun_direction,
             "use_fused": self._use_fused(),
             "sampler_mode": self.sampler_mode,
+            # wavefront compaction around the fused traces (renderer.py:533)
+            "compact": compact.mode(),
         }
         if self.sky_mode == SKY_HOSEK:
             params["hosek"] = self.hosek_state
