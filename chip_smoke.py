@@ -52,8 +52,13 @@ exits non-zero without the final `ok` line:
     and metal_row with FREDHOLM_COMPACT=1 as well; B7 launched, twins 0
 15. the resident metric: metric 2 with the gate on, with its launches per
     spp (B4 1, B7 closest 4, B7 any 5, B5 0, B6 1) and busy share
-16. the FMA probe (P1) vs its twin ([8,128] float32, [16,128] bfloat16),
-    then the card's float32/bfloat16 FMA and memory-stream rates
+16. the FMA probe (P1) vs its twin, bit-equal, at the reference's tile
+    shapes ([8,128] float32, [16,128] bfloat16) and on the [65536,128]
+    inputs the rates are timed on (bfloat16 also with constants that move
+    every step), then the card's float32/bfloat16 FMA and memory-stream
+    rates
+17. wavefront compaction A/B: metric 2 with the gate off and on, each
+    with FREDHOLM_COMPACT 0 and 1, in turns 0, 1, 1, 0
 """
 
 from __future__ import annotations
@@ -469,7 +474,7 @@ def main() -> None:
     import fredholm_tpu_torch as ft
     from fredholm_tpu_torch import _build
     from fredholm_tpu_torch.accel import clustered, dense
-    from fredholm_tpu_torch.experimental import resident
+    from fredholm_tpu_torch.experimental import compact, resident
     from fredholm_tpu_torch.fused import kernels, slot_fetch
     from fredholm_tpu_torch.fused import pt_fused as pf
     from fredholm_tpu_torch.integrator import pt as wavefront
@@ -1060,8 +1065,9 @@ def main() -> None:
     bounds13 = {}
     for name, st_, view, out_b in (("resident_closest", sc13, rad13, 16),
                                    ("resident_any", sa13, occ13, 1)):
-        n_bytes = (ray_bytes(view) + out_b * view.shape[1] + 4 * resident.META_ROWS
-                   * st_["meta_cols"] + page_bytes * st_["pages"] + 4 * 6)
+        entries = ", ".join(f"{k} {int(v.sum())}" for k, v in st_["read"].items())
+        # each table entry the lanes' tests read, once (the twin's marks)
+        n_bytes = ray_bytes(view) + out_b * view.shape[1] + st_["table_bytes"]
         n_ops = (st_["page"] + st_["cluster"] + st_["group"]) * SLAB_OPS + st_["tri"] * TRI_OPS
         bounds13[name] = bound(n_bytes, n_ops)
         print(f"[13] {name}: {view.shape[1]} rays, {int((view[6] > 0).sum())} live; slab tests "
@@ -1069,7 +1075,8 @@ def main() -> None:
               f"tests {st_['tri']}; distinct pages {st_['pages']} and meta columns "
               f"{st_['meta_cols']}; staged per block of {resident.RES_BLOCK} rays: "
               f"{st_['block_pages']} pages ({st_['block_pages'] * page_bytes / 1e9:.3f} GB) "
-              f"and {st_['block_meta_cols']} meta columns; bound "
+              f"and {st_['block_meta_cols']} meta columns; table bytes read "
+              f"{st_['table_bytes']} (entries: {entries}); bound "
               f"{bounds13[name][0]:.4f} ms ({bounds13[name][1]})")
     b45 = {"closest": bounds2["clustered_closest"], "any": bounds2["clustered_any"]}
     for name, key in (("closest", "resident_closest"), ("any", "resident_any")):
@@ -1135,26 +1142,23 @@ def main() -> None:
 
     # ---- 16: the FMA probe (P1) vs its twin, then the card's rates
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    xf = torch.tensor(rng.uniform(-2, 2, (8, 128)), dtype=torch.float32, device=dev)
-    xb = torch.tensor(rng.uniform(-2, 2, (16, 128)), dtype=torch.float32,
-                      device=dev).to(torch.bfloat16)
-    kf, tf = probe.fma_chain(xf), probe.fma_chain_twin(xf)
-    kb, tb = probe.fma_chain(xb), probe.fma_chain_twin(xb)
-    rel_f = ((kf - tf).abs() / tf.abs()).max().item()
-    print(f"[16] P1 f32 [8,128]: max relative difference to the twin {rel_f:.3g} (fmaf rounds "
-          f"once, the twin twice; limit 1e-5); bf16 [16,128]: bit-equal "
-          f"{torch.equal(kb, tb)}")
-    if rel_f > 1e-5 or not torch.equal(kb, tb):
-        raise AssertionError("the FMA probe differs from its twin")
-    results["probe_fma"] = (kf - tf).abs().max().item()
+    # bit-equal: the twin rounds each step once, as fmaf and __hfma2 do.
+    # The reference's tile shapes, then the inputs the rates are timed on;
+    # bfloat16 also with constants that move every chain every step (the
+    # reference's leave a bfloat16 chain unchanged)
+    for rows, dtype in ((8, torch.float32), (16, torch.bfloat16), (1 << 16, torch.float32),
+                        (1 << 16, torch.bfloat16)):
+        pairs = probe.check(probe.fma_inputs(rows, dtype, dev))
+        print(f"[16] P1 {str(dtype)[6:]} [{rows},128]: bit-equal to its twin with (c, d) in "
+              f"{pairs}")
+    results["probe_fma"] = 0.0
+    x16 = probe.fma_inputs(1 << 16, torch.float32, dev)
     _build.LAUNCHES.clear()
     rates = probe.measure(iters=5)
     launches5 = dict(_build.LAUNCHES)
     for name, (ms, rate) in rates.items():
         unit = "GFLOP/s" if name.startswith("fma") else "GB/s (read + write)"
         print(f"[16] {name}: {ms:.4f} ms, {rate:.1f} {unit} on {card}")
-    x16 = torch.full((1 << 16, 128), 0.5, dtype=torch.float32, device=dev)
     times16 = {"probe_fma": (rates["fma f32"][0],
                              cuda_ms(lambda: probe.fma_chain_twin(x16), 1))}
     bounds16 = {"probe_fma": bound(8 * x16.numel(), probe.FLOPS_PER_ELEMENT * x16.numel())}
@@ -1162,6 +1166,56 @@ def main() -> None:
           f"twin {times16['probe_fma'][1]:.4f} ms, bound {bounds16['probe_fma'][0]:.4f} ms "
           f"({bounds16['probe_fma'][1]}); {probe.FLOPS_PER_ELEMENT} flops an element")
     phase_done(16, t0)
+
+    # ---- 17: compaction A/B on metric 2, the gate off (rs) and on (rr)
+    t0 = time.perf_counter()
+    ab = {}
+    for gate_name, r_ab, env_ab in (("gate off", rs, {}), ("gate on", rr, gate)):
+        runs = []
+        for mode in ("0", "1", "1", "0"):
+            with environ(**env_ab, FREDHOLM_COMPACT=mode):
+                if r_ab._params(depth2)["compact"] != mode:
+                    raise AssertionError("compaction mode not read")
+                pv_ab, s_ab, l_ab = timed_metric(r_ab, spp2, depth2, _build)
+            if any(k.endswith("_twin") and v for k, v in l_ab.items()):
+                raise AssertionError(f"[17] twins ran: {l_ab}")
+            runs.append((mode, pv_ab / s_ab / 1e6))
+        mpv = {m: sum(v for k, v in runs if k == m) / 2 for m in ("0", "1")}
+        ab[gate_name] = {"compact_0_mpv_s": mpv["0"], "compact_1_mpv_s": mpv["1"],
+                         "compact_1_over_0": mpv["1"] / mpv["0"],
+                         "turns": [f"{m}:{v}" for m, v in runs]}
+    print(json.dumps({"metric": "hosek_sweep_512x288_8spp_depth5_compaction_ab", "card": card,
+                      **ab}))
+    # where it goes: each trace kernel on [13]'s d = 1 rays as they lie
+    # and packed live-first, and the packing's own ops (partition, pack,
+    # restore), in turns
+    pk = {}
+    for name, view in (("closest", rad13), ("any", occ13)):
+        dest = compact.partition_dest(view[6] > 0.0)
+        pk[name] = compact.compact_rays(dest, view)
+        if not torch.equal(pk[name][:, :int((view[6] > 0).sum())], view[:, view[6] > 0]):
+            raise AssertionError("packed rays out of order")
+    times17 = turns("[17]", {
+        "B4": ("as they lie", lambda: clustered.intersect_closest_clustered(rc, rad13),
+               "packed", lambda: clustered.intersect_closest_clustered(rc, pk["closest"])),
+        "B5": ("as they lie", lambda: clustered.intersect_any_clustered(rc, occ13),
+               "packed", lambda: clustered.intersect_any_clustered(rc, pk["any"])),
+        "B7 closest": ("as they lie", lambda: resident.intersect_closest_resident(rc, rad13),
+                       "packed", lambda: resident.intersect_closest_resident(rc, pk["closest"])),
+        "B7 any": ("as they lie", lambda: resident.intersect_any_resident(rc, occ13),
+                   "packed", lambda: resident.intersect_any_resident(rc, pk["any"])),
+    })
+
+    def pack_round_trip(view):
+        dest = compact.partition_dest(view[6] > 0.0)
+        packed = compact.compact_rays(dest, view)
+        return compact.uncompact_occ(dest, packed[6] > 0.0)
+
+    turns("[17]", {"packing ops": ("closest block", lambda: pack_round_trip(rad13),
+                                   "occlusion blocks", lambda: pack_round_trip(occ13))})
+    print("[17] packed / as they lie: " + ", ".join(
+        f"{k} {v[1] / v[0]:.3f}" for k, v in times17.items()))
+    phase_done(17, t0)
 
     # ---- 6: records. dense_closest is timed on metric 1's path, dense_any
     # on the wavefront metric's, the resident kernels on metric 2's bounce

@@ -35,7 +35,6 @@ in csrc/resident.cu or raise.
 
 from __future__ import annotations
 
-import os
 from typing import Dict
 
 import numpy as np
@@ -48,15 +47,14 @@ from ..accel.clustered import RESIDENT_ENV, _inv_dir, _slab, _slab_t, walk_clust
 P_CL = 4      # clusters per page: the page layout; results do not depend on it
 CHUNK = 128   # meta columns streamed at a time
 RES_BLOCK = 256  # rays of one CUDA block (csrc/resident.cu kBlock); the stats count per block
-META_ROWS = 14   # res_meta rows the kernel reads (0-13)
 
 
 def routes(c: Dict, coherent: bool) -> bool:
     """Whether a dispatch takes this traversal (pt.py:98-114): an
-    incoherent one, with the gate on, on an identity scene that carries
-    the resident tables."""
-    return (not coherent and os.environ.get(RESIDENT_ENV, "0") == "1"
-            and c["identity"] and "res_meta" in c)
+    incoherent one, on an identity scene that carries the resident
+    tables. The gate is read once, where the tables are built
+    (accel/clustered.py `prepare_clustered`)."""
+    return not coherent and c["identity"] and "res_meta" in c
 
 
 def prepare_resident(tlas, device) -> Dict:
@@ -114,6 +112,7 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
     best_t = torch.where(alive, torch.minimum(tmax, clamp), tmax)
 
     prim = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    slot = torch.full((m,), -1, dtype=torch.int64, device=dev)
     bu = torch.zeros((m,), dtype=torch.float32, device=dev)
     bv = torch.zeros((m,), dtype=torch.float32, device=dev)
     occ = torch.zeros((m,), dtype=torch.bool, device=dev)
@@ -122,23 +121,37 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
     counts = meta[6].cpu().numpy()  # the host copy drives the loops
     n_pages = _n_pages(c)
     n_chunks = meta.shape[1] // CHUNK
-    # with stats: the chunk in which each lane found its occluder, and the
-    # pages staged (any block) and their count over blocks
+    # with stats: the chunk in which each lane found its occluder, the
+    # pages staged (any block) and their count over blocks, and a mask per
+    # table of the entries the lanes' tests read
     occ_chunk = torch.full((m,), n_chunks, dtype=torch.int64, device=dev)
     page_read = torch.zeros(n_pages, dtype=torch.bool, device=dev)
     if stats is not None:
         for k in ("page", "cluster", "group", "tri", "block_pages"):
             stats.setdefault(k, 0)
+        n_cl = n_pages * P_CL
+        sizes = {"page_box": n_pages, "cl_count": n_cl, "cl_box": n_cl,
+                 "grp_box": n_cl * CLUSTER_SIZE, "tri": n_cl * CLUSTER_SIZE,
+                 "prim": n_cl * CLUSTER_SIZE}
+        read = stats.setdefault("read", {})
+        for k, n in sizes.items():
+            read.setdefault(k, torch.zeros(n, dtype=torch.bool, device=dev))
 
     def count(key, n):
         if stats is not None:
             stats[key] += int(n)
+
+    def mark(key, idx):
+        if stats is not None:
+            read[key][idx] = True
 
     lanes_alive = torch.nonzero(alive, as_tuple=True)[0]
     for p in range(n_pages):
         c0 = p * P_CL
         lanes = lanes_alive[~occ[lanes_alive]] if any_hit else lanes_alive
         count("page", lanes.numel())
+        if lanes.numel():
+            mark("page_box", p)
         lanes = lanes[_slab(meta[8:14, c0], [x[lanes] for x in o], [x[lanes] for x in inv],
                             best_t[lanes])]
         if lanes.numel() == 0:
@@ -147,11 +160,14 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             page_read[p] = True
             count("block_pages", torch.unique(lanes // RES_BLOCK).numel())
         for cid in range(c0, c0 + P_CL):
+            mark("cl_count", cid)
             cnt = int(counts[cid])
             if cnt <= 0:
                 continue
             ln = lanes[~occ[lanes]] if any_hit else lanes
             count("cluster", ln.numel())
+            if ln.numel():
+                mark("cl_box", cid)
             ln = ln[_slab(meta[0:6, cid], [x[ln] for x in o], [x[ln] for x in inv], best_t[ln])]
             if ln.numel() == 0:
                 continue
@@ -162,6 +178,8 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             if walk is not None:
                 count("group", walk["grp"])
                 count("tri", walk["tri"])
+                mark("grp_box", base + torch.nonzero(walk["grp_read"]).flatten())
+                mark("tri", base + torch.nonzero(walk["tri_read"]).flatten())
             if any_hit:
                 occ[ln] = res
                 occ_chunk[ln[res]] = cid // CHUNK
@@ -170,6 +188,7 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             hit = win >= 0
             hl, kk = ln[hit], win[hit]
             best_t[hl] = t_w[hit]
+            slot[hl] = base + kk
             prim[hl] = blocks[9, base + kk].to(torch.int32)
             bu[hl] = u_w[hit]
             bv[hl] = v_w[hit]
@@ -183,6 +202,11 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
         stats["block_meta_cols"] = stats.get("block_meta_cols", 0) + int(blk.sum()) * CHUNK
         stats["meta_cols"] = max(stats.get("meta_cols", 0), int(blk.max()) * CHUNK)
         stats["pages"] = stats.get("pages", 0) + int(page_read.sum())
+        # the kernel reads row 9 (prim) of each lane's final hit; every
+        # alive lane reads the root box, the tables once per entry read
+        mark("prim", slot[slot >= 0])
+        rows = {"page_box": 6, "cl_count": 1, "cl_box": 6, "grp_box": 6, "tri": 9, "prim": 1}
+        stats["table_bytes"] = 4 * (6 + sum(r * int(read[k].sum()) for k, r in rows.items()))
     if any_hit:
         return {"occluded": occ}
     miss = prim < 0
@@ -196,7 +220,11 @@ def intersect_closest_twin(c: Dict, rays: torch.Tensor, stats=None) -> Dict:
     and the triangle tests the kernel takes ("page", "cluster", "group",
     "tri"), the triangle pages and meta columns its blocks of RES_BLOCK
     rays stage, summed over blocks ("block_pages", "block_meta_cols"),
-    and the distinct pages and meta columns read ("pages", "meta_cols")."""
+    the distinct pages and meta columns read ("pages", "meta_cols"),
+    "read" (a mask per table of the entries the lanes' tests read: page
+    and cluster boxes, cluster counts, group boxes, triangles, and the
+    prim row at each lane's final hit) and "table_bytes" (those entries'
+    bytes, each read once, and the root box)."""
     _build.LAUNCHES["resident_closest_twin"] += 1
     return _sweep_twin(c, rays, False, stats)
 

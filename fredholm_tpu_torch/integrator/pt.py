@@ -73,8 +73,8 @@ def _ray_buffer(o, d, t_max):
 
 def _use_resident(dev: Dict, coherent: bool) -> bool:
     """Whether a trace takes the ray-resident traversal (B7; pt.py:98-114):
-    incoherent, FREDHOLM_TRAV_RESIDENT=1, an identity instance and the
-    resident tables present."""
+    incoherent, an identity instance and the resident tables present
+    (built at set_scene under FREDHOLM_TRAV_RESIDENT=1)."""
     return "clusters" in dev and resident.routes(dev["clusters"], coherent)
 
 

@@ -144,6 +144,15 @@ def test_closest_twin_matches_reference(sphere_case):
     assert stats["page"] >= int((~dead).sum()) and stats["tri"] > 0
     assert 0 < stats["pages"] <= stats["block_pages"]
     assert stats["meta_cols"] == c["res_meta"].shape[1]
+    # the bytes: each entry read once; prim at each distinct final hit,
+    # whose triangle was tested
+    read = {k: v.numpy() for k, v in stats["read"].items()}
+    assert read["prim"].sum() == len(np.unique(got["prim"][hit]))
+    assert not (read["prim"] & ~read["tri"]).any()
+    assert read["page_box"].sum() <= stats["pages"] + 1 and read["cl_box"].sum() > 0
+    rows = {"page_box": 6, "cl_count": 1, "cl_box": 6, "grp_box": 6, "tri": 9, "prim": 1}
+    assert stats["table_bytes"] == 4 * (6 + sum(r * int(read[k].sum()) for k, r in rows.items()))
+    assert stats["table_bytes"] < 4 * (c["res_meta"].numel() + c["blocks"].numel())
 
 
 def test_any_twin_matches_reference(sphere_case):
@@ -158,6 +167,7 @@ def test_any_twin_matches_reference(sphere_case):
     resident.intersect_any_twin(c, rays, s_any)
     resident.intersect_closest_twin(c, rays, s_cl)
     assert 0 < s_any["tri"] < s_cl["tri"]
+    assert not s_any["read"]["prim"].any() and s_any["read"]["tri"].any()
 
 
 def _emissive_spheres():
