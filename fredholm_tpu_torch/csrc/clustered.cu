@@ -6,31 +6,737 @@
 // fredholm_tpu_torch/accel/clustered.py `intersect_closest_twin`,
 // `intersect_any_twin`.
 //
-// One thread per ray walks the reference's tables (accel/cluster.py) in
-// table order: instance AABB -> supercluster AABB -> member-cluster AABB
-// (cl_meta) -> 16-triangle group AABB (blocks rows 10-15) -> triangles.
-// Every level is gated by the reference's slab test against the lane's
-// running best t, after the reference's root-box clamp of the initial
-// best t; triangles use its Moller-Trumbore test and the strict
-// `t < best` rule, so on exactly equal t the lowest slot wins. Any-hit
-// stops at the first hit below the clamped tmax. The loops are fixed and
-// need no stack: front-to-back ordering, shared-memory staging and
-// warp-coherent traversal are later work.
+// Contract, independent of the visit order: the closest hit is the valid
+// hit below the lane's root-clamped tmax with the smallest (t, inst,
+// slot), compared in that order; any-hit is whether such a hit exists.
+// Every level (instance, supercluster, member cluster, 16-triangle group)
+// is gated by the reference's slab test against the running best t, and
+// the gate is inclusive (tn <= best t), so a box holding a tied lower
+// (inst, slot) is never pruned; triangles use the reference's
+// Moller-Trumbore test. The kernels and the twin give the same bits.
 //
-// Bounds on the H100, at the bounce shapes of the hosek sweep that
-// chip_smoke.py times (PERF.md has the numbers): the closest hit by bytes,
-// the any-hit by operations. A live ray reads 28 B and a dead one 4 B, a
-// ray writes 24 B (closest) or 1 B (any), and the tables are read once per
-// entry the rays reach; a slab test takes ~21 flops and a triangle test
-// ~40. The any-hit traces three blocks of rays, each walking boxes until
-// its first hit, so its tests outweigh its bytes. Both run 70x (any) to
-// 180x (closest) above their bound: each thread waits on a chain of
-// dependent loads (supercluster, cluster and group boxes, then triangles),
-// and divergent lanes of a warp serialise the loops, which warp-coherent
-// traversal would fix.
+// The walk: each ray visits an instance's superclusters front to back in
+// one of the six visit orders (sc_order, sc_key: accel/cluster.py), the
+// one of its own object-space direction (dominant axis and sign; the
+// reference picks one per 2048-ray tile, pallas_clustered.py:568-586).
+// Before each position it leaves the instance if (key - o') * inv' > best
+// t, o' and inv' its origin and inverse direction along the order's axis,
+// sign-flipped (taken only where d' > 1e-7, as `exit_ok` at :602). That
+// product is the slab test's own entry distance along the axis of the box
+// the key comes from, and keys ascend along the order, so every later box
+// would fail its gate: the exit is exact and changes no result.
+//
+// Records (accel/clustered.py `card_records`): a box is two float4s
+// (lo.xyz + a count or child index, hi.xyz + an id), a triangle three
+// (v0 + prim, e1, e2), so every fetch is one or two 16-byte loads where
+// the reference layout's lane-major columns took six to nine scalar loads
+// a table row apart.
+//
+// Variants (template flags; the wrapper picks them):
+//  - kStaged: each block copies the supercluster records, the visit
+//    orders and keys and the member-cluster records into shared memory
+//    (cp.async) when they take at most kStageBytesMax; above that the same
+//    records are read from global memory.
+//  - kWarp (incoherent traces): a warp walks its live rays one at a time,
+//    32 supercluster, member-cluster or triangle records of that ray at
+//    once, ballots the boxes that pass and visits them in order, each
+//    re-gated against the best t of the moment; a cluster's triangles are
+//    tested 32 at a time, reduced to each group's first (t, slot) minimum
+//    (__shfl_xor_sync) and the group walk replayed in order, which is the
+//    one-lane walk's result exactly. Else (coherent traces) one lane walks
+//    one ray.
+//
+// Bounds on the H100 at the hosek sweep's shapes that chip_smoke.py times
+// (PERF.md has the numbers): the closest hit by bytes, the any-hit by
+// operations, both far below what a chain of dependent loads allows: each
+// level's loads wait on the previous level's test. The front-to-back exit
+// shortens the chain, the records cut each link to one or two loads,
+// shared memory serves the top levels at its latency, and the warp walk
+// turns a live ray's chain of serial tests into loads issued 32 at a time.
 #include "common.cuh"
 
 namespace {
+
+constexpr int kBlock = 256;
+constexpr int kCluster = 128;
+constexpr int kTriGroup = 16;
+constexpr int kGroups = kCluster / kTriGroup;
+constexpr int kOrders = 6;
+// accel/clustered.py STAGE_BYTES_MAX
+constexpr int kStageBytesMax = 64 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Tables {
+  const float* root;       // [6, 8] (column 0 used)
+  const float4* inst_rec;  // [I, 2] lo.xyz | sc base, hi.xyz | sc count (int bits)
+  const float4* inst_xf;   // [I, 3] world -> object affine rows
+  const float4* sc_rec;    // [S, 2] lo.xyz | member count, hi.xyz | first member (int bits)
+  const int* sc_order;     // [6, S] visit orders (global supercluster ids)
+  const float* sc_key;     // [6, S] their ascending keys
+  const float4* cl_rec;    // [C, 2] lo.xyz | tri count, hi.xyz | cluster id (floats)
+  const float4* grp_rec;   // [C * 8, 2] group boxes
+  const float4* tri_rec;   // [C * 128, 3] v0 | prim (float), e1 | 0, e2 | 0
+  int n_inst, n_sc, n_cl, identity;
+  bool compact;  // DEV
+};
+
+struct Out {
+  float* t;
+  int* prim;
+  float* u;
+  float* v;
+  int* inst;
+  int* slot;
+  unsigned char* occ;
+};
+
+// the records of the top levels a block walks, in shared or global memory
+struct Top {
+  const float4* sc;
+  const float4* cl;
+  const float* key;
+  const int* order;
+};
+
+// a ray's running best hit
+struct Hit {
+  float t;
+  int slot, inst;
+  float u, v;
+};
+
+template <bool kShared>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+template <bool kShared, typename T>
+__device__ __forceinline__ T ld1(const T* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Stage the top levels into the block's shared memory: supercluster and
+// member-cluster records, then the visit orders' keys and ids. Every
+// thread of the block calls it (it ends in a barrier).
+__device__ __forceinline__ Top stage_top(float4* smem, const Tables& tb) {
+  float4* s_sc = smem;
+  float4* s_cl = s_sc + 2 * tb.n_sc;
+  float* s_key = reinterpret_cast<float*>(s_cl + 2 * tb.n_cl);
+  int* s_ord = reinterpret_cast<int*>(s_key + kOrders * tb.n_sc);
+  for (int e = threadIdx.x; e < 2 * tb.n_sc; e += blockDim.x) cp_async16(s_sc + e, tb.sc_rec + e);
+  for (int e = threadIdx.x; e < 2 * tb.n_cl; e += blockDim.x) cp_async16(s_cl + e, tb.cl_rec + e);
+  for (int e = threadIdx.x; e < kOrders * tb.n_sc; e += blockDim.x) {
+    cp_async4(s_key + e, tb.sc_key + e);
+    cp_async4(s_ord + e, tb.sc_order + e);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  return Top{s_sc, s_cl, s_key, s_ord};
+}
+
+__device__ __forceinline__ bool gate(float tn, float tf, float t_best) {
+  return (tn <= tf) && (tf >= 0.0f) && (tn <= t_best);
+}
+
+__device__ __forceinline__ void slab_rec(const float4& lo, const float4& hi, const Ray& r,
+                                         float& tn, float& tf) {
+  slab_t(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r, tn, tf);
+}
+
+__device__ __forceinline__ bool slab_rec_gate(const float4& lo, const float4& hi, const Ray& r,
+                                              float t_best) {
+  return slab_box(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r, t_best);
+}
+
+// the ray in instance space (rows of the world -> object affine)
+__device__ __forceinline__ Ray to_object(const float4* xf, const Ray& w) {
+  const float4 a = __ldg(xf), b = __ldg(xf + 1), c = __ldg(xf + 2);
+  Ray r;
+  r.ox = a.x * w.ox + a.y * w.oy + a.z * w.oz + a.w;
+  r.oy = b.x * w.ox + b.y * w.oy + b.z * w.oz + b.w;
+  r.oz = c.x * w.ox + c.y * w.oy + c.z * w.oz + c.w;
+  r.dx = a.x * w.dx + a.y * w.dy + a.z * w.dz;
+  r.dy = b.x * w.dx + b.y * w.dy + b.z * w.dz;
+  r.dz = c.x * w.dx + c.y * w.dy + c.z * w.dz;
+  r.ix = inv_dir(r.dx);
+  r.iy = inv_dir(r.dy);
+  r.iz = inv_dir(r.dz);
+  return r;
+}
+
+// A ray's visit order and its sign-flipped coordinates along the order's
+// axis (twin: clustered.py `order_class`)
+struct Order {
+  int o;
+  float op, ip;
+  bool exit_ok;
+};
+
+__device__ __forceinline__ Order order_of(const Ray& r) {
+  const float ax_ = fabsf(r.dx), ay = fabsf(r.dy), az = fabsf(r.dz);
+  const int ax = (ax_ >= ay && ax_ >= az) ? 0 : (ay >= az ? 1 : 2);
+  const float d = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
+  const float o = ax == 0 ? r.ox : (ax == 1 ? r.oy : r.oz);
+  const float iv = ax == 0 ? r.ix : (ax == 1 ? r.iy : r.iz);
+  const bool neg = d < 0.0f;
+  Order c;
+  c.o = 2 * ax + (neg ? 1 : 0);
+  c.op = neg ? -o : o;
+  c.ip = neg ? -iv : iv;
+  c.exit_ok = (neg ? -d : d) > 1e-7f;
+  return c;
+}
+
+// the (t, inst, slot) rule of a valid hit (t, slot) of instance in
+__device__ __forceinline__ bool better(const Hit& h, float t, int in, int slot) {
+  return t < h.t || (t == h.t && h.slot >= 0 && (in < h.inst || (in == h.inst && slot < h.slot)));
+}
+
+__device__ __forceinline__ MtHit mt_rec(const float4* q, const Ray& r) {
+  const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+  return moller_trumbore(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, a.x, a.y, a.z, b.x, b.y, b.z, c.x,
+                         c.y, c.z);
+}
+
+// ---------------------------------------------------------------------------
+// one lane a ray
+
+// cluster cid (cnt triangles) of instance in: its groups, each gated by
+// its box, then their triangles. Returns true at any-hit's first hit.
+template <bool kAny>
+__device__ __forceinline__ bool lane_cluster(const Tables& tb, const Ray& r, int in, int cid,
+                                             int cnt, Hit& h) {
+  const float4* g = tb.grp_rec + (long long)cid * (2 * kGroups);
+  const float4* q = tb.tri_rec + (long long)cid * (3 * kCluster);
+  for (int gi = 0; gi < kGroups && gi * kTriGroup < cnt; ++gi) {
+    if (!slab_rec_gate(__ldg(g + 2 * gi), __ldg(g + 2 * gi + 1), r, h.t)) continue;
+    const int k_end = min(cnt, (gi + 1) * kTriGroup);
+    for (int k = gi * kTriGroup; k < k_end; ++k) {
+      const MtHit m = mt_rec(q + 3 * k, r);
+      if (!m.valid) continue;
+      if (kAny) {
+        if (m.t < h.t) return true;
+        continue;
+      }
+      const int slot = cid * kCluster + k;
+      if (better(h, m.t, in, slot)) {
+        h.t = m.t;
+        h.slot = slot;
+        h.inst = in;
+        h.u = m.u;
+        h.v = m.v;
+      }
+    }
+  }
+  return false;
+}
+
+// supercluster s: its member clusters in table order, gated against the
+// best t of the moment. kTwoPass gates 32 members at the best t on entry,
+// then walks the passing ones, each re-gated.
+template <bool kAny, bool kShared, bool kTwoPass>
+__device__ __forceinline__ bool lane_sc(const Tables& tb, const Top& top, const Ray& r, int in,
+                                        int s, Hit& h) {
+  const float4 lo = ld4<kShared>(top.sc + 2 * s), hi = ld4<kShared>(top.sc + 2 * s + 1);
+  if (!slab_rec_gate(lo, hi, r, h.t)) return false;
+  const int mcount = __float_as_int(lo.w);
+  const float4* cl = top.cl + 2 * __float_as_int(hi.w);
+  if (kTwoPass) {
+    for (int j0 = 0; j0 < mcount; j0 += 32) {
+      const int jn = min(32, mcount - j0);
+      unsigned bits = 0;
+      for (int b = 0; b < jn; ++b) {
+        if (slab_rec_gate(ld4<kShared>(cl + 2 * (j0 + b)), ld4<kShared>(cl + 2 * (j0 + b) + 1),
+                          r, h.t))
+          bits |= 1u << b;
+      }
+      while (bits) {
+        const int j = j0 + __ffs(bits) - 1;
+        bits &= bits - 1;
+        const float4 clo = ld4<kShared>(cl + 2 * j), chi = ld4<kShared>(cl + 2 * j + 1);
+        if (!slab_rec_gate(clo, chi, r, h.t)) continue;
+        if (lane_cluster<kAny>(tb, r, in, (int)chi.w, (int)clo.w, h)) return true;
+      }
+    }
+    return false;
+  }
+  for (int j = 0; j < mcount; ++j) {
+    const float4 clo = ld4<kShared>(cl + 2 * j), chi = ld4<kShared>(cl + 2 * j + 1);
+    if (!slab_rec_gate(clo, chi, r, h.t)) continue;
+    if (lane_cluster<kAny>(tb, r, in, (int)chi.w, (int)clo.w, h)) return true;
+  }
+  return false;
+}
+
+// the ray w (alive) through every instance; h.t holds its tmax on entry.
+// kOrdered: front to back with the exit; else the superclusters in table
+// order without it.
+template <bool kAny, bool kShared, bool kOrdered, bool kTwoPass>
+__device__ __forceinline__ bool lane_walk(const Tables& tb, const Top& top, const Ray& w, Hit& h) {
+  h.t = fminf(h.t, root_exit_clamp(tb.root, w));
+  for (int in = 0; in < tb.n_inst; ++in) {
+    const float4 ilo = __ldg(tb.inst_rec + 2 * in), ihi = __ldg(tb.inst_rec + 2 * in + 1);
+    if (!slab_rec_gate(ilo, ihi, w, h.t)) continue;
+    const Ray r = tb.identity ? w : to_object(tb.inst_xf + 3 * in, w);
+    const int sc_lo = __float_as_int(ilo.w), sc_n = __float_as_int(ihi.w);
+    if (!kOrdered) {
+      for (int s = sc_lo; s < sc_lo + sc_n; ++s)
+        if (lane_sc<kAny, kShared, kTwoPass>(tb, top, r, in, s, h)) return true;
+      continue;
+    }
+    const Order oc = order_of(r);
+    const int base = oc.o * tb.n_sc + sc_lo;
+    for (int k = 0; k < sc_n; ++k) {
+      if (oc.exit_ok && (ld1<kShared>(top.key + base + k) - oc.op) * oc.ip > h.t) break;
+      if (lane_sc<kAny, kShared, kTwoPass>(tb, top, r, in, ld1<kShared>(top.order + base + k), h))
+        return true;
+    }
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// one segment of kW lanes of a warp a ray (every value below is the same in
+// the segment's lanes, but the per-lane temporaries of the kW-wide tests)
+
+template <int kW>
+struct Seg {
+  unsigned mask;  // the segment's lanes in the warp
+  int base;       // its first lane in the warp
+  int lane;       // this thread's lane in the segment
+
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    const unsigned b = __ballot_sync(mask, p) >> base;
+    return kW == 32 ? b : b & ((1u << (kW & 31)) - 1);
+  }
+  template <typename T>
+  __device__ __forceinline__ T shfl(T v, int src) const {
+    return __shfl_sync(mask, v, src, kW);
+  }
+  template <typename T>
+  __device__ __forceinline__ T shfl_xor(T v, int off) const {
+    return __shfl_xor_sync(mask, v, off, kW);
+  }
+  __device__ __forceinline__ bool any(bool p) const { return __any_sync(mask, p) != 0; }
+};
+
+// cluster cid of instance in: the group boxes in lanes 0-7, the
+// triangles of the groups that pass on entry kW at a time, each group's
+// first (t, slot) minimum, then the group walk replayed in order
+template <bool kAny, int kW>
+__device__ __forceinline__ bool seg_cluster(const Tables& tb, const Ray& r, int in, int cid,
+                                            int cnt, const Seg<kW>& sg, Hit& h, bool compact) {
+  constexpr int kRounds = kCluster / kW, kPer = kW / kTriGroup;  // groups a round
+  constexpr unsigned kPerMask = (1u << kPer) - 1;
+  const int lane = sg.lane;
+  float gtn = 0.0f, gtf = -1.0f;
+  if (lane < kGroups && lane * kTriGroup < cnt) {
+    const float4* g = tb.grp_rec + (long long)cid * (2 * kGroups) + 2 * lane;
+    slab_rec(__ldg(g), __ldg(g + 1), r, gtn, gtf);
+  }
+  const float entry = h.t;
+  const unsigned gbits = sg.ballot(gate(gtn, gtf, entry)) & ((1u << kGroups) - 1);
+  if (!gbits) return false;
+  const bool tie_ok = !kAny && h.slot >= 0 &&
+                      (in < h.inst || (in == h.inst && cid * kCluster < h.slot));
+  const float4* q = tb.tri_rec + (long long)cid * (3 * kCluster);
+  const float inf = __int_as_float(0x7f800000);
+  // lane g < 8 ends up holding group g's first (t, slot) minimum
+  float my_gt = inf;
+  int my_gk = kCluster;
+  if (compact && kW == 32) {
+    // the passing groups two a round, one a half-warp
+    unsigned rem = gbits;
+    while (rem) {
+      const int g0 = __ffs(rem) - 1;
+      rem &= rem - 1;
+      const int g1 = rem ? __ffs(rem) - 1 : -1;
+      if (rem) rem &= rem - 1;
+      const int g = lane < kTriGroup ? g0 : g1;
+      const int k = g * kTriGroup + (lane & (kTriGroup - 1));
+      float t = inf;
+      int kk = kCluster;
+      if (g >= 0 && k < cnt) {
+        const MtHit m = mt_rec(q + 3 * k, r);
+        if (m.valid && (m.t < entry || (tie_ok && m.t == entry))) {
+          t = m.t;
+          kk = k;
+        }
+      }
+      if (kAny) {
+        if (sg.any(t < inf)) return true;
+        continue;
+      }
+#pragma unroll
+      for (int off = kTriGroup / 2; off > 0; off >>= 1) {
+        const float ot = sg.shfl_xor(t, off);
+        const int ok = sg.shfl_xor(kk, off);
+        if (ot < t || (ot == t && ok < kk)) {
+          t = ot;
+          kk = ok;
+        }
+      }
+      const float t0 = sg.shfl(t, 0), t1 = sg.shfl(t, kTriGroup);
+      const int k0 = sg.shfl(kk, 0), k1 = sg.shfl(kk, kTriGroup);
+      if (lane == g0) {
+        my_gt = t0;
+        my_gk = k0;
+      }
+      if (lane == g1) {
+        my_gt = t1;
+        my_gk = k1;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int rr = 0; rr < kRounds; ++rr) {
+      const int k = rr * kW + lane;
+      float t = inf;
+      int kk = kCluster;
+      if ((gbits >> (rr * kPer)) & kPerMask) {
+        if (((gbits >> (k / kTriGroup)) & 1u) && k < cnt) {
+          const MtHit m = mt_rec(q + 3 * k, r);
+          if (m.valid && (m.t < entry || (tie_ok && m.t == entry))) {
+            t = m.t;
+            kk = k;
+          }
+        }
+      }
+      if (kAny) {
+        if (sg.any(t < inf)) return true;
+        continue;
+      }
+#pragma unroll
+      for (int off = kTriGroup / 2; off > 0; off >>= 1) {
+        const float ot = sg.shfl_xor(t, off);
+        const int ok = sg.shfl_xor(kk, off);
+        if (ot < t || (ot == t && ok < kk)) {
+          t = ot;
+          kk = ok;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) {
+        const float tp = sg.shfl(t, p * kTriGroup);
+        const int kp = sg.shfl(kk, p * kTriGroup);
+        if (lane == rr * kPer + p) {
+          my_gt = tp;
+          my_gk = kp;
+        }
+      }
+    }
+  }
+  if (kAny) return false;
+  float cur = entry;
+  bool cur_tie = tie_ok;
+  int win = -1;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const float tn_g = sg.shfl(gtn, g), tf_g = sg.shfl(gtf, g);
+    const float gt = sg.shfl(my_gt, g);
+    const int gk = sg.shfl(my_gk, g);
+    if (((gbits >> g) & 1u) && gate(tn_g, tf_g, cur) &&
+        (gt < cur || (cur_tie && gt == cur))) {
+      cur = gt;
+      win = gk;
+      cur_tie = false;
+    }
+  }
+  if (win < 0) return false;
+  // the winner's barycentrics, computed as the one-lane walk computes them
+  const MtHit m = mt_rec(q + 3 * win, r);
+  h.t = cur;
+  h.slot = cid * kCluster + win;
+  h.inst = in;
+  h.u = m.u;
+  h.v = m.v;
+  return false;
+}
+
+template <bool kAny, bool kShared, int kW>
+__device__ __forceinline__ bool seg_sc(const Tables& tb, const Top& top, const Ray& r, int in,
+                                       int s, const Seg<kW>& sg, Hit& h, bool compact) {
+  const float4 lo = ld4<kShared>(top.sc + 2 * s), hi = ld4<kShared>(top.sc + 2 * s + 1);
+  const int mcount = __float_as_int(lo.w);
+  const float4* cl = top.cl + 2 * __float_as_int(hi.w);
+  for (int j0 = 0; j0 < mcount; j0 += kW) {
+    const int j = j0 + sg.lane;
+    float tn = 0.0f, tf = -1.0f;
+    int cnt = 0, cid = 0;
+    if (j < mcount) {
+      const float4 clo = ld4<kShared>(cl + 2 * j), chi = ld4<kShared>(cl + 2 * j + 1);
+      slab_rec(clo, chi, r, tn, tf);
+      cnt = (int)clo.w;
+      cid = (int)chi.w;
+    }
+    unsigned bits = sg.ballot(gate(tn, tf, h.t));
+    while (bits) {
+      const int p = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const float tn_p = sg.shfl(tn, p), tf_p = sg.shfl(tf, p);
+      const int cid_p = sg.shfl(cid, p), cnt_p = sg.shfl(cnt, p);
+      if (!gate(tn_p, tf_p, h.t)) continue;
+      if (seg_cluster<kAny, kW>(tb, r, in, cid_p, cnt_p, sg, h, compact)) return true;
+    }
+  }
+  return false;
+}
+
+// The ray w through every instance, front to back. Positions are tested
+// kW at a time (key bound, supercluster box) and the ones that pass or
+// exit visited in order: a skipped position fails its gate at the best t
+// of the ballot and so later, and keys ascend, so the first exit a lane
+// walk would take is taken at the next visited position at the latest.
+template <bool kAny, bool kShared, int kW>
+__device__ __forceinline__ bool seg_walk(const Tables& tb, const Top& top, const Ray& w,
+                                         const Seg<kW>& sg, Hit& h, bool compact) {
+  h.t = fminf(h.t, root_exit_clamp(tb.root, w));
+  for (int in = 0; in < tb.n_inst; ++in) {
+    const float4 ilo = __ldg(tb.inst_rec + 2 * in), ihi = __ldg(tb.inst_rec + 2 * in + 1);
+    if (!slab_rec_gate(ilo, ihi, w, h.t)) continue;
+    const Ray r = tb.identity ? w : to_object(tb.inst_xf + 3 * in, w);
+    const int sc_lo = __float_as_int(ilo.w), sc_n = __float_as_int(ihi.w);
+    const Order oc = order_of(r);
+    const int base = oc.o * tb.n_sc + sc_lo;
+    bool stop = false;
+    for (int k0 = 0; k0 < sc_n && !stop; k0 += kW) {
+      const int k = k0 + sg.lane;
+      float lb = 0.0f, tn = 0.0f, tf = -1.0f;
+      int s = 0;
+      if (k < sc_n) {
+        lb = (ld1<kShared>(top.key + base + k) - oc.op) * oc.ip;
+        s = ld1<kShared>(top.order + base + k);
+        slab_rec(ld4<kShared>(top.sc + 2 * s), ld4<kShared>(top.sc + 2 * s + 1), r, tn, tf);
+      }
+      const bool out = k < sc_n && oc.exit_ok && lb > h.t;
+      unsigned bits = sg.ballot(out || gate(tn, tf, h.t));
+      while (bits) {
+        const int p = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const float lb_p = sg.shfl(lb, p);
+        const float tn_p = sg.shfl(tn, p), tf_p = sg.shfl(tf, p);
+        const int s_p = sg.shfl(s, p);
+        if (oc.exit_ok && lb_p > h.t) {
+          stop = true;
+          break;
+        }
+        if (!gate(tn_p, tf_p, h.t)) continue;
+        if (seg_sc<kAny, kShared, kW>(tb, top, r, in, s_p, sg, h, compact)) return true;
+      }
+    }
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// kernels
+
+__device__ __forceinline__ void store(const Tables& tb, const Out& out, int i, float tmax,
+                                      const Hit& h, bool occ, bool any) {
+  if (any) {
+    out.occ[i] = occ ? 1 : 0;
+    return;
+  }
+  const bool hit = h.slot >= 0;
+  out.t[i] = hit ? h.t : tmax;
+  out.prim[i] = hit ? (int)__ldg(reinterpret_cast<const float*>(tb.tri_rec) + 12LL * h.slot + 3)
+                    : -1;
+  out.u[i] = h.u;
+  out.v[i] = h.v;
+  out.inst[i] = h.inst;
+  out.slot[i] = h.slot;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, long long stride, int i) {
+  return make_ray(rays[i], rays[stride + i], rays[2 * stride + i], rays[3 * stride + i],
+                  rays[4 * stride + i], rays[5 * stride + i]);
+}
+
+template <bool kAny, bool kStaged, bool kOrdered, bool kTwoPass>
+__global__ void __launch_bounds__(kBlock)
+    k_lane(const float* __restrict__ rays, long long stride, int m, const Tables tb,
+           const Out out) {
+  extern __shared__ float4 smem[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float tmax = i < m ? rays[6 * stride + i] : 0.0f;
+  const bool alive = tmax > 0.0f;
+  Hit h{tmax, -1, 0, 0.0f, 0.0f};
+  Top top{tb.sc_rec, tb.cl_rec, tb.sc_key, tb.sc_order};
+  if (kStaged) {
+    // a block without a live lane stages nothing
+    if (!__syncthreads_or(alive)) {
+      if (i < m) store(tb, out, i, tmax, h, false, kAny);
+      return;
+    }
+    top = stage_top(smem, tb);
+  }
+  if (i >= m) return;
+  bool occ = false;
+  if (alive)
+    occ = lane_walk<kAny, kStaged, kOrdered, kTwoPass>(tb, top, load_ray(rays, stride, i), h);
+  store(tb, out, i, tmax, h, occ, kAny);
+}
+
+// A warp's live rays are handed out kSegs at a time, the q-th to segment q;
+// a segment's lane 0 stores its ray's result, each dead lane its own.
+#if defined(FH_NO_LB)
+#define FH_BOUNDS
+#elif defined(FH_LB1)
+#define FH_BOUNDS __launch_bounds__(kBlock, 1)
+#else
+#define FH_BOUNDS __launch_bounds__(kBlock)
+#endif
+template <bool kAny, bool kStaged, int kW>
+__global__ void FH_BOUNDS
+    k_warp(const float* __restrict__ rays, long long stride, int m, const Tables tb,
+           const Out out) {
+  extern __shared__ float4 smem[];
+  constexpr int kSegs = 32 / kW;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int wl = threadIdx.x & 31;
+  const float tmax = i < m ? rays[6 * stride + i] : 0.0f;
+  const bool alive = tmax > 0.0f;
+  Top top{tb.sc_rec, tb.cl_rec, tb.sc_key, tb.sc_order};
+  if (kStaged) {
+    if (!__syncthreads_or(alive)) {
+      if (i < m) store(tb, out, i, tmax, Hit{tmax, -1, 0, 0.0f, 0.0f}, false, kAny);
+      return;
+    }
+    top = stage_top(smem, tb);
+  }
+  const int q = wl / kW;
+  const Seg<kW> sg{kW == 32 ? kFull : ((1u << (kW & 31)) - 1) << (q * kW), q * kW, wl - q * kW};
+  unsigned live = __ballot_sync(kFull, alive);
+  while (live) {
+    int src = -1;
+#pragma unroll
+    for (int p = 0; p < kSegs; ++p) {
+      if (live) {
+        if (p == q) src = __ffs(live) - 1;
+        live &= live - 1;
+      }
+    }
+    if (src < 0) continue;
+    const int j = i - wl + src;
+    Hit h{rays[6 * stride + j], -1, 0, 0.0f, 0.0f};
+    const float tmax_j = h.t;
+    const bool occ =
+        seg_walk<kAny, kStaged, kW>(tb, top, load_ray(rays, stride, j), sg, h, tb.compact);
+    if (sg.lane == 0) store(tb, out, j, tmax_j, h, occ, kAny);
+  }
+  if (i < m && !alive) store(tb, out, i, tmax, Hit{tmax, -1, 0, 0.0f, 0.0f}, false, kAny);
+}
+
+template <typename K>
+int go(K kernel, int m, int threads, size_t smem, cudaStream_t stream, const float* rays,
+       long long stride, const Tables& tb, const Out& out) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(m + threads - 1) / threads, threads, smem, stream>>>(rays, stride, m, tb, out);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// variant bits: 1 staged, 2 warp, 4 table order, 8 two-pass member gating
+template <bool kAny>
+int launch(const float* rays, long long stride, int m, const float* root, const float* inst_rec,
+           const float* inst_xf, int n_inst, int identity, const float* sc_rec,
+           const int* sc_order, const float* sc_key, int n_sc, const float* cl_rec,
+           const float* grp_rec, const float* tri_rec, int n_cl, int variant, float* t,
+           int* prim, float* u, float* v, int* inst, int* slot, unsigned char* occ,
+           cudaStream_t stream) {
+  if (m < 1 || n_inst < 1 || n_sc < 1 || n_cl < 1) return (int)cudaErrorInvalidValue;
+  if (kAny ? occ == nullptr : (t == nullptr || prim == nullptr || u == nullptr || v == nullptr ||
+                                inst == nullptr || slot == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(inst_rec) || !aligned16(inst_xf) || !aligned16(sc_rec) || !aligned16(cl_rec) ||
+      !aligned16(grp_rec) || !aligned16(tri_rec))
+    return (int)cudaErrorMisalignedAddress;
+  Tables tb;
+  tb.root = root;
+  tb.inst_rec = reinterpret_cast<const float4*>(inst_rec);
+  tb.inst_xf = reinterpret_cast<const float4*>(inst_xf);
+  tb.sc_rec = reinterpret_cast<const float4*>(sc_rec);
+  tb.sc_order = sc_order;
+  tb.sc_key = sc_key;
+  tb.cl_rec = reinterpret_cast<const float4*>(cl_rec);
+  tb.grp_rec = reinterpret_cast<const float4*>(grp_rec);
+  tb.tri_rec = reinterpret_cast<const float4*>(tri_rec);
+  tb.n_inst = n_inst;
+  tb.n_sc = n_sc;
+  tb.n_cl = n_cl;
+  tb.identity = identity;
+  const Out out{t, prim, u, v, inst, slot, occ};
+  const bool staged = variant & 1, warp = variant & 2, table = variant & 4, two = variant & 8;
+  const int threads = (variant & 16) ? 128 : kBlock;
+  tb.compact = (variant & 256) != 0;
+  const size_t smem = staged ? (size_t)32 * n_sc + (size_t)32 * n_cl + (size_t)48 * n_sc : 0;
+  if (smem > (size_t)kStageBytesMax) return (int)cudaErrorInvalidValue;
+  if (warp) {
+    if (table || two) return (int)cudaErrorInvalidValue;
+const bool half = variant & 128;
+    if (half)
+      return staged ? go(k_warp<kAny, true, 16>, m, threads, smem, stream, rays, stride, tb, out)
+                    : go(k_warp<kAny, false, 16>, m, threads, smem, stream, rays, stride, tb, out);
+    return staged ? go(k_warp<kAny, true, 32>, m, threads, smem, stream, rays, stride, tb, out)
+                  : go(k_warp<kAny, false, 32>, m, threads, smem, stream, rays, stride, tb, out);
+  }
+#define FH_LANE(S, O, T) \
+  if (staged == S && !table == O && two == T) \
+    return go(k_lane<kAny, S, O, T>, m, threads, smem, stream, rays, stride, tb, out);
+  FH_LANE(true, true, true)
+  FH_LANE(true, true, false)
+  FH_LANE(true, false, true)
+  FH_LANE(true, false, false)
+  FH_LANE(false, true, true)
+  FH_LANE(false, true, false)
+  FH_LANE(false, false, true)
+  FH_LANE(false, false, false)
+#undef FH_LANE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+#define FH_CLUSTERED_ARGS                                                                        \
+  const float *rays, long long stride, int m, const float *root, const float *inst_rec,          \
+      const float *inst_xf, int n_inst, int identity, const float *sc_rec, const int *sc_order,  \
+      const float *sc_key, int n_sc, const float *cl_rec, const float *grp_rec,                  \
+      const float *tri_rec, int n_cl, int variant, float *t, int *prim, float *u, float *v,      \
+      int *inst, int *slot, unsigned char *occ, cudaStream_t stream
+#define FH_CLUSTERED_PASS                                                                        \
+  rays, stride, m, root, inst_rec, inst_xf, n_inst, identity, sc_rec, sc_order, sc_key, n_sc, \
+      cl_rec, grp_rec, tri_rec, n_cl, variant, t, prim, u, v, inst, slot, occ, stream
+
+extern "C" int fh_clustered_closest(FH_CLUSTERED_ARGS) { return launch<false>(FH_CLUSTERED_PASS); }
+
+extern "C" int fh_clustered_any(FH_CLUSTERED_ARGS) { return launch<true>(FH_CLUSTERED_PASS); }
+
+// DEV: the PR-4 table-order kernel on the reference layout, timed beside
+// the redesign in one call; removed before the PR ends
+namespace v4 {
 
 constexpr int kBlock = 128;
 constexpr int kCluster = 128;
@@ -177,18 +883,18 @@ int launch(const float* rays, long long stride, int m, const float* root, const 
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace v4
 
-#define FH_CLUSTERED_ARGS                                                                         \
+#define FH_V4_ARGS                                                                         \
   const float *rays, long long stride, int m, const float *root, const float *inst_aabb,          \
       const float *inst_minv, const int *inst_sc, int n_inst, int identity, const float *sc_aabb, \
       const int *sc_mcount, int n_sc, const float *cl_meta, const float *blocks,                  \
       long long n_slots, float *t, int *prim, float *u, float *v, int *inst, int *slot,           \
       unsigned char *occ, cudaStream_t stream
-#define FH_CLUSTERED_PASS                                                                        \
+#define FH_V4_PASS                                                                        \
   rays, stride, m, root, inst_aabb, inst_minv, inst_sc, n_inst, identity, sc_aabb, sc_mcount, \
       n_sc, cl_meta, blocks, n_slots, t, prim, u, v, inst, slot, occ, stream
 
-extern "C" int fh_clustered_closest(FH_CLUSTERED_ARGS) { return launch<false>(FH_CLUSTERED_PASS); }
+extern "C" int fh_clustered_v4_closest(FH_V4_ARGS) { return v4::launch<false>(FH_V4_PASS); }
 
-extern "C" int fh_clustered_any(FH_CLUSTERED_ARGS) { return launch<true>(FH_CLUSTERED_PASS); }
+extern "C" int fh_clustered_v4_any(FH_V4_ARGS) { return v4::launch<true>(FH_V4_PASS); }

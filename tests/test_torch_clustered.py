@@ -263,15 +263,17 @@ def test_twin_counts_its_tests():
 
 
 def _kernel_walk(c, rays, any_hit):
-    """csrc/clustered.cu's loop, one ray at a time in float32 numpy:
-    (slab tests, triangle tests, {table: entries read})."""
+    """csrc/clustered.cu's one-lane walk, one ray at a time in float32
+    numpy: superclusters front to back in the ray's own visit order with
+    the key-bound exit, hits by the (t, inst, slot) rule. Returns (slab
+    tests, triangle tests, key-bound tests, {table: entries read})."""
     f = np.float32
     tb = {k: c[k].numpy() for k in tcl._TABLE_KEYS}
-    n_inst, nc = tb["inst_aabb"].shape[1], tb["cl_meta"].shape[1]
+    n_inst, n_sc = tb["inst_aabb"].shape[1], tb["sc_aabb"].shape[1]
     blocks = tb["blocks"]
-    n = {"slab": 0, "tri": 0}
-    read = {k: set() for k in ("sc_aabb", "sc_mcount", "cl_box", "cl_ref", "grp_box",
-                               "tri", "prim")}
+    n = {"slab": 0, "tri": 0, "key": 0}
+    read = {k: set() for k in ("sc_aabb", "sc_mcount", "sc_order", "sc_key", "cl_box",
+                               "cl_ref", "grp_box", "tri", "prim")}
 
     def inv_dir(x):
         return f(1.0) / ((f(-1e-12) if x < 0 else f(1e-12)) if abs(x) < f(1e-12) else x)
@@ -292,7 +294,7 @@ def _kernel_walk(c, rays, any_hit):
         inv = [inv_dir(x) for x in d]
         tn, tf = slab_t(tb["root_aabb"][:, 0], o, inv)
         best = min(tmax, tf * f(1.0001) + f(1e-4) if tn <= tf and tf >= 0 else f(0.0))
-        best_slot = -1
+        best_slot, best_inst = -1, 0
         for i in range(n_inst):
             if not slab(tb["inst_aabb"][:, i], o, inv, best):
                 continue
@@ -304,19 +306,30 @@ def _kernel_walk(c, rays, any_hit):
                 rd = [mm[4 * r] * d[0] + mm[4 * r + 1] * d[1] + mm[4 * r + 2] * d[2]
                       for r in range(3)]
                 rinv = [inv_dir(x) for x in rd]
+            a = [abs(x) for x in rd]
+            ax = 0 if a[0] >= a[1] and a[0] >= a[2] else (1 if a[1] >= a[2] else 2)
+            neg = rd[ax] < 0
+            oc = 2 * ax + int(neg)
+            op, ip, dp = ((-x[ax] if neg else x[ax]) for x in (ro, rinv, rd))
             sc_lo, sc_n = tb["inst_sc"][0, i], tb["inst_sc"][1, i]
-            for s in range(sc_lo, sc_lo + sc_n):
+            for col in range(sc_lo, sc_lo + sc_n):
+                n["key"] += 1
+                read["sc_key"].add(oc * n_sc + col)
+                if dp > f(1e-7) and (tb["sc_key"][oc, col] - op) * ip > best:
+                    break
+                read["sc_order"].add(oc * n_sc + col)
+                s = tb["sc_order"][oc, col]
                 read["sc_aabb"].add(s)
                 if not slab(tb["sc_aabb"][:, s], ro, rinv, best):
                     continue
                 read["sc_mcount"].add(s)
-                for col in range(s * 128, s * 128 + tb["sc_mcount"][s]):
-                    read["cl_box"].add(col)
-                    if not slab(tb["cl_meta"][:, col], ro, rinv, best):
+                for mc in range(s * 128, s * 128 + tb["sc_mcount"][s]):
+                    read["cl_box"].add(mc)
+                    if not slab(tb["cl_meta"][:, mc], ro, rinv, best):
                         continue
-                    read["cl_ref"].add(col)
-                    cnt = int(tb["cl_meta"][6, col])
-                    base = int(tb["cl_meta"][7, col]) * 128
+                    read["cl_ref"].add(mc)
+                    cnt = int(tb["cl_meta"][6, mc])
+                    base = int(tb["cl_meta"][7, mc]) * 128
                     for g in range(-(-cnt // 16)):
                         read["grp_box"].add(base + g)
                         if not slab(blocks[10:16, base + g], ro, rinv, best):
@@ -335,11 +348,16 @@ def _kernel_walk(c, rays, any_hit):
                                  tv[0] * e1[1] - tv[1] * e1[0]]
                             v = (rd[0] * q[0] + rd[1] * q[1] + rd[2] * q[2]) * inv_det
                             t = (e2[0] * q[0] + e2[1] * q[1] + e2[2] * q[2]) * inv_det
-                            if (abs(det) > f(1e-12) and u >= 0 and v >= 0 and u + v <= f(1.0)
-                                    and t > 0 and t < best):
-                                if any_hit:
+                            if not (abs(det) > f(1e-12) and u >= 0 and v >= 0
+                                    and u + v <= f(1.0) and t > 0):
+                                continue
+                            if any_hit:
+                                if t < best:
                                     return
-                                best, best_slot = t, k
+                                continue
+                            if t < best or (t == best and best_slot >= 0
+                                            and (i, k) < (best_inst, best_slot)):
+                                best, best_slot, best_inst = t, k, i
         if best_slot >= 0:
             read["prim"].add(best_slot)
 
@@ -347,23 +365,157 @@ def _kernel_walk(c, rays, any_hit):
     for j in range(r.shape[1]):
         if r[6, j] > 0:
             walk(list(r[0:3, j]), list(r[3:6, j]), r[6, j])
-    return n["slab"], n["tri"], read
+    return n["slab"], n["tri"], n["key"], read
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("instanced", [False, True], ids=["identity", "instanced"])
 def test_twin_counts_the_kernels_walk(any_hit, instanced):
     """The twin's test counts and read masks (which set chip_smoke.py's
-    bounds) equal a ray-at-a-time replay of the kernel's loop, early exit
-    of any-hit included."""
+    bounds) equal a ray-at-a-time replay of the kernel's front-to-back
+    walk, its key-bound exit and the early exit of any-hit included."""
     c, _, rays, _ = _sphere_case(instanced)
     rays = rays[:, ::4].contiguous()
     stats = {"slab": 0, "tri": 0}
     (tcl.intersect_any_twin if any_hit else tcl.intersect_closest_twin)(c, rays, stats)
-    n_slab, n_tri, read = _kernel_walk(c, rays, any_hit)
-    assert (stats["slab"], stats["tri"]) == (n_slab, n_tri)
+    n_slab, n_tri, n_key, read = _kernel_walk(c, rays, any_hit)
+    assert (stats["slab"], stats["tri"], stats["key"]) == (n_slab, n_tri, n_key)
     for k, entries in read.items():
         assert set(torch.nonzero(stats["read"][k]).flatten().tolist()) == entries, k
+
+
+def _bits_equal(got, want, keys):
+    for k in keys:
+        assert got[k].dtype == want[k].dtype, k
+        assert got[k].numpy().tobytes() == want[k].numpy().tobytes(), k
+
+
+@pytest.mark.parametrize("instanced", [False, True], ids=["identity", "instanced"])
+def test_twin_does_not_depend_on_the_visit_order(instanced):
+    """The (t, inst, slot) result of the front-to-back walk, per-ray order
+    or any one of the six for every ray, key-bound exit on or off, equals
+    the plain table-order walk bit for bit; so does any-hit's."""
+    c, _, rays, _ = _sphere_case(instanced)
+    keys = ("t", "prim", "u", "v", "inst", "slot")
+    want = tcl.intersect_closest_twin(c, rays, order="table")
+    want_occ = tcl.intersect_any_twin(c, rays, order="table")
+    assert bool((want["prim"] >= 0).any())
+    for order in ("ray", *range(6)):
+        for early_exit in (True, False):
+            got = tcl.intersect_closest_twin(c, rays, order=order, early_exit=early_exit)
+            _bits_equal(got, want, keys)
+            occ = tcl.intersect_any_twin(c, rays, order=order, early_exit=early_exit)
+            assert torch.equal(occ, want_occ), (order, early_exit)
+
+
+def _tie_case(kind: str):
+    """Tables with an exact tie, rays through it and the slots that tie.
+    "triangle": a triangle of the sphere's first supercluster (one that
+    no axis flattens) copied into a free slot of a cluster of the other,
+    the boxes on its way widened to hold it; "instances": two instances of
+    one sphere under the same non-identity transform."""
+    from fredholm_tpu_torch.accel.cluster import _direction_orders, build_tlas
+
+    h, _, _, _ = _sphere_blas()
+    rng = np.random.default_rng(5)
+    if kind == "instances":
+        m4 = np.diag([0.8, 0.8, 0.8, 1.0]).astype(np.float32)
+        m4[:3, 3] = [0.3, -0.2, 0.1]
+        tlas = build_tlas([h], [(0, m4), (0, m4)])
+        target = rng.normal(size=(64, 3)) * 0.3 + m4[:3, 3]
+        pair = None
+    else:
+        tlas = build_tlas([h], [(0, np.eye(4))])
+        meta, b = tlas.cl_meta, tlas.blocks
+        src = next(k for k in range(int(meta[6, 0]))
+                   if (np.ptp(b[0:3, k][:, None] + np.c_[np.zeros(3), b[3:6, k], b[6:9, k]],
+                              axis=1) > 1e-3).all())
+        dst_col = next(j for j in range(128, 128 + int(tlas.sc_mcount[1])) if meta[6, j] < 128)
+        cnt = int(meta[6, dst_col])
+        dst = int(meta[7, dst_col]) * 128 + cnt
+        b[0:10, dst] = b[0:10, src]
+        v = np.stack([b[0:3, src], b[0:3, src] + b[3:6, src], b[0:3, src] + b[6:9, src]])
+        lo, hi = v.min(axis=0), v.max(axis=0)
+        g = int(meta[7, dst_col]) * 128 + cnt // 16
+        b[10:13, g] = np.minimum(b[10:13, g], lo)
+        b[13:16, g] = np.maximum(b[13:16, g], hi)
+        meta[6, dst_col] = cnt + 1
+        meta[0:3, dst_col] = np.minimum(meta[0:3, dst_col], lo)
+        meta[3:6, dst_col] = np.maximum(meta[3:6, dst_col], hi)
+        tlas.sc_aabb[0:3, 1] = np.minimum(tlas.sc_aabb[0:3, 1], lo)
+        tlas.sc_aabb[3:6, 1] = np.maximum(tlas.sc_aabb[3:6, 1], hi)
+        tlas.sc_order, tlas.sc_key = _direction_orders(tlas.sc_aabb)
+        target = rng.dirichlet([2, 2, 2], 64) @ v
+        pair = (src, dst)
+    # rays from all around toward the tied surface
+    o = rng.normal(size=(64, 3))
+    o = (target + 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tcl.prepare_clustered(tlas, "cpu"), _rays(o, d, np.full(64, 1e9, np.float32)), pair
+
+
+@pytest.mark.parametrize("kind", ["triangle", "instances"])
+def test_exact_tie_takes_the_lowest_inst_and_slot(kind):
+    """On an exact tie every visit order reports the lowest (inst, slot):
+    a triangle copied into another supercluster's cluster, and two
+    instances that coincide."""
+    c, rays, pair = _tie_case(kind)
+    keys = ("t", "prim", "u", "v", "inst", "slot")
+    want = tcl.intersect_closest_twin(c, rays, order="table")
+    hit = want["prim"] >= 0
+    if kind == "instances":
+        assert int(hit.sum()) >= 32 and (want["inst"][hit] == 0).all()
+    else:
+        assert c["sc_mcount"].shape[0] == 2
+        on_pair = want["prim"] == int(c["blocks"][9, pair[0]])
+        assert int(on_pair.sum()) >= 16 and (want["slot"][on_pair] == min(pair)).all()
+    for order in ("ray", *range(6)):
+        _bits_equal(tcl.intersect_closest_twin(c, rays, order=order), want, keys)
+
+
+def test_card_records_hold_the_tables(both_tables):
+    """The kernels' 16-byte records and the uploaded visit orders and keys
+    hold the reference's table entries byte for byte."""
+    _, _, _, host, (_, j_tlas, _) = both_tables
+    c = tcl.prepare_clustered(host["tlas"], "cpu")
+    rec = {k: c[k].numpy() for k in tcl._RECORD_KEYS}
+    f32 = np.float32
+
+    def word(a, col, dtype):
+        return np.ascontiguousarray(a[:, col]).view(dtype)
+
+    assert _same(c["sc_order"].numpy(), j_tlas.sc_order)
+    assert _same(c["sc_key"].numpy(), j_tlas.sc_key)
+    assert _same(np.ascontiguousarray(rec["inst_rec"][:, 0:3].T), j_tlas.inst_aabb[0:3])
+    assert _same(np.ascontiguousarray(rec["inst_rec"][:, 4:7].T), j_tlas.inst_aabb[3:6])
+    assert _same(word(rec["inst_rec"], 3, np.int32), j_tlas.inst_sc[0])
+    assert _same(word(rec["inst_rec"], 7, np.int32), j_tlas.inst_sc[1])
+    assert _same(np.ascontiguousarray(rec["inst_xf"].T), j_tlas.inst_minv)
+    sc = rec["sc_rec"]
+    assert _same(np.ascontiguousarray(sc[:, 0:3].T), j_tlas.sc_aabb[0:3])
+    assert _same(np.ascontiguousarray(sc[:, 4:7].T), j_tlas.sc_aabb[3:6])
+    mcount = word(sc, 3, np.int32)
+    assert _same(mcount, j_tlas.sc_mcount)
+    first = word(sc, 7, np.int32)
+    cl = rec["cl_rec"]
+    for s in range(mcount.shape[0]):
+        want = j_tlas.cl_meta[:, s * 128:s * 128 + mcount[s]]
+        got = cl[first[s]:first[s] + mcount[s]]
+        assert _same(np.ascontiguousarray(got[:, 0:3].T), want[0:3])
+        assert _same(np.ascontiguousarray(got[:, 4:7].T), want[3:6])
+        assert _same(got[:, 3], want[6]) and _same(got[:, 7], want[7])
+    assert _same(cl[:, 7], np.arange(cl.shape[0], dtype=f32))  # members in cluster-id order
+    blocks = j_tlas.blocks
+    gcols = (np.arange(cl.shape[0])[:, None] * 128 + np.arange(8)).ravel()
+    grp = rec["grp_rec"]
+    assert _same(np.ascontiguousarray(grp[:, 0:3].T), blocks[10:13, gcols])
+    assert _same(np.ascontiguousarray(grp[:, 4:7].T), blocks[13:16, gcols])
+    tri = rec["tri_rec"]
+    for lo, row in ((0, 0), (4, 3), (8, 6)):
+        assert _same(np.ascontiguousarray(tri[:, lo:lo + 3].T), blocks[row:row + 3])
+    assert _same(tri[:, 3], blocks[9])
+    assert not tri[:, [7, 11]].any() and not grp[:, [3, 7]].any()
 
 
 # ---------------------------------------------------------------------------
