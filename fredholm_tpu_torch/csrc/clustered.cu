@@ -597,12 +597,10 @@ __global__ void __launch_bounds__(kBlock)
 
 // A warp's live rays are handed out kSegs at a time, the q-th to segment q;
 // a segment's lane 0 stores its ray's result, each dead lane its own.
-#if defined(FH_NO_LB)
-#define FH_BOUNDS
-#elif defined(FH_LB1)
-#define FH_BOUNDS __launch_bounds__(kBlock, 1)
-#else
+#if defined(FH_LB_PLAIN)
 #define FH_BOUNDS __launch_bounds__(kBlock)
+#else
+#define FH_BOUNDS __launch_bounds__(kBlock, kAny ? 3 : 1)
 #endif
 template <bool kAny, bool kStaged, int kW>
 __global__ void FH_BOUNDS
