@@ -20,18 +20,25 @@ exits non-zero without the final `ok` line:
 6. the kernel table, the card line, then {"ok": true, "device": ...}
    (printed last, after phases 7-9)
 7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
-   through Renderer(device="cuda"); clustered closest-hit / any-hit and
-   slot-fetch kernels vs their twins
-   at the hosek-sweep shapes (512x288 primaries, one bounce's closest and
-   occlusion blocks), a two-instance non-identity TLAS with 2^18 rays,
-   and the shading kernels vs their twins on the sweep's planes (Hosek
-   sky, sun block, metal/specular lobes, split occlusion, slot planes)
+   through Renderer(device="cuda"); the clustered closest-hit / any-hit
+   kernels bit-equal to their twins in both kept variants (top levels
+   staged in shared memory, and read from global memory: t, u, v, prim,
+   inst, slot, the occlusion masks; every slot names its prim) at the
+   hosek-sweep shapes (512x288 primaries, one bounce's closest and
+   occlusion blocks) and on a two-instance non-identity TLAS with 2^18
+   rays; the slot fetch bit-equal to its twin; the shading kernels vs
+   their twins on the sweep's planes (Hosek sky, sun block, metal/specular
+   lobes, split occlusion, slot planes)
 8. the goldens terrain_cluster, hosek_sun and metal_row through
    Renderer(device="cuda"), scored against tests/golden/*.npz
 9. metric 2: the hosek sweep at 512x288, 8 spp, depth 5 after 2 warm-up
    spp (bench.py:170-182), with its launch counts, and per-kernel times
    vs the plain twins at its shapes, beside each kernel's bound, and the
-   device's busy share from torch.profiler
+   device's busy share from torch.profiler; B4/B5's bounds counted with
+   the front-to-back walk and with the PR-4 table-order walk, and both
+   variants timed in turns (CUDA events around the wrapper, and CUDA-graph
+   replays) at the d = 1 blocks, the primaries and two floors (all lanes
+   dead; one live lane a block), beside the PR-4 design's times
 10. the dense any-hit kernel (B3) vs its twin, bit-equal masks: the
     1024-triangle soup of [2] (2^20 rays, dead lanes included) and the
     concatenated NEE rays of a real wavefront bounce of metric 1's scene
@@ -93,6 +100,10 @@ PEAK_FP32_PER_S = 67e12
 # Moller-Trumbore (cross products, dots, one divide, compares)
 SLAB_OPS = 21
 TRI_OPS = 40
+# a key-bound test of the front-to-back walk (sub, mul, compare)
+KEY_OPS = 3
+# B4 and B5 at metric 2's d = 1 blocks in the PR-4 design (PR 4 run 5)
+PR4_MS = {"B4": 0.3564, "B5": 0.3281}
 # float operations a lane of each shading stage takes (counted from the
 # bodies, hashing included; all three stages are bound by their bytes)
 STAGE_OPS = {"raygen": 300, "mega": 1500, "final_resolve": 150}
@@ -304,6 +315,77 @@ def instanced_case(n_rays: int, device):
     rays = np.concatenate([o.T, d.T, tmax[None]]).astype(np.float32)
     return (prepare_clustered(tlas, device), np.asarray(tlas.blocks[9]),
             torch.as_tensor(np.ascontiguousarray(rays), device=device))
+
+
+HIT_KEYS = ("t", "prim", "u", "v", "inst", "slot")
+
+
+def clustered_variants(clustered, c):
+    """The kept B4/B5 kernels for the tables c: staged (where the top
+    levels fit in shared memory) and global."""
+    return (True, False) if clustered.stage_bytes(c) <= clustered.STAGE_BYTES_MAX else (False,)
+
+
+def check_clustered(tag, name, clustered, c, rays, row9=None, any_hit=False):
+    """B4 (or B5) against its twin on the same rays, bit for bit, in every
+    kept variant: t, u, v, prim, inst and slot (the mask on any-hit); every
+    hit's slot names its prim (blocks row 9). Returns the twin's result."""
+    import torch
+
+    twin = (clustered.intersect_any_twin if any_hit else clustered.intersect_closest_twin)(
+        c, rays)
+    for staged in clustered_variants(clustered, c):
+        fn = clustered.intersect_any_clustered if any_hit else \
+            clustered.intersect_closest_clustered
+        got = fn(c, rays, staged=staged)
+        torch.cuda.synchronize()
+        variant = "staged" if staged else "global"
+        if any_hit:
+            n_diff = int((got != twin).sum())
+            print(f"{tag} {name} ({variant}): rays={rays.shape[1]} occluded={int(got.sum())} "
+                  f"lanes differing from the twin={n_diff}")
+            if n_diff:
+                raise AssertionError(f"{name} ({variant}): B5 differs from its twin")
+            continue
+        diff = {k: int((got[k].view(torch.int32) != twin[k].view(torch.int32)).sum())
+                for k in HIT_KEYS}
+        hit = got["prim"] >= 0
+        print(f"{tag} {name} ({variant}): rays={rays.shape[1]} hits={int(hit.sum())} "
+              f"lanes differing from the twin {json.dumps(diff)}")
+        if any(diff.values()):
+            raise AssertionError(f"{name} ({variant}): B4 differs from its twin")
+        r9 = c["blocks"][9] if row9 is None else row9
+        slot_ok = (r9[got["slot"][hit].long()].to(torch.int32) == got["prim"][hit]).all()
+        if not bool(slot_ok) or not bool((got["slot"][~hit] == -1).all()):
+            raise AssertionError(f"{name} ({variant}): slot does not name the hit prim")
+    return twin
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device ms of one call of fn: `calls` calls captured in a CUDA graph,
+    replayed `reps` times between CUDA events (no host cost between the
+    kernels)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        g.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (reps * calls)
 
 
 def score_golden(tag, name, img, launches, want_shape):
@@ -658,21 +740,10 @@ def main() -> None:
     n_spp2 = torch.full((ns,), 3, dtype=torch.int64, device=dev)
     n_occ = len(cfg2.occ_blocks(True))
     nb2 = len(cfg2.blocks)
-    row9 = c["blocks"][9].to(torch.int64)
-
-    def check_trace(name, rays_view):
-        kh = clustered.intersect_closest_clustered(c, rays_view)
-        th = clustered.intersect_closest_twin(c, rays_view)
-        torch.cuda.synchronize()
-        e = compare_trace(name, kh, th, rays_view.shape[1], "[7]")
-        hit = kh["prim"] >= 0
-        ok = (row9[kh["slot"][hit].to(torch.int64)].to(torch.int32) == kh["prim"][hit]).all()
-        if not bool(ok) or not bool((kh["slot"][~hit] == -1).all()):
-            raise AssertionError(f"{name}: slot does not name the hit prim")
-        return kh, e
 
     st0, si0, r0 = kernels.raygen(cfg2, sv2, usv2, n_spp2)
-    kh0, e_p = check_trace("sweep primaries 512x288", r0)
+    check_clustered("[7]", "sweep primaries 512x288", clustered, c, r0)
+    kh0 = clustered.intersect_closest_clustered(c, r0)
     geom_k = slot_fetch.fetch_geom_by_slot(sweep_dev["slot_attrs"], kh0["slot"])
     geom_t = slot_fetch.fetch_twin(sweep_dev["slot_attrs"], kh0["slot"])
     results["slot_fetch"] = (geom_k - geom_t).abs().max().item()
@@ -682,38 +753,23 @@ def main() -> None:
     _, r1, _, _ = kernels.mega(cfg2, 0, sv2, usv2, sweep_dev, n_spp2, si0, st0, r0, None,
                                pf.Traced(kh0, None, geom_k))
     occ_view = r1[:, :n_occ * ns]
-    ok_ = clustered.intersect_any_clustered(c, occ_view)
-    ot_ = clustered.intersect_any_twin(c, occ_view)
-    any_off = [(ok_ != ot_).float().mean().item()]
-    agree = 1.0 - any_off[0]
-    print(f"[7] sweep bounce occlusion blocks {cfg2.occ_blocks(True)}: rays={occ_view.shape[1]} "
-          f"occluded={int(ok_.sum())} agreement={agree:.7f}")
-    if agree < 1.0 - 1e-4:
-        raise AssertionError("clustered any-hit kernel disagrees with its twin")
+    check_clustered("[7]", f"sweep bounce occlusion blocks {cfg2.occ_blocks(True)}", clustered,
+                    c, occ_view, any_hit=True)
     rad_view = r1[:, n_occ * ns:nb2 * ns]
-    _, e_b = check_trace("sweep bounce closest block", rad_view)
+    check_clustered("[7]", "sweep bounce closest block", clustered, c, rad_view)
     ic, i_row9, i_rays = instanced_case(1 << 18, dev)
-    ikh = clustered.intersect_closest_clustered(ic, i_rays)
-    ith = clustered.intersect_closest_twin(ic, i_rays)
-    e_i = compare_trace("two-instance TLAS", ikh, ith, 1 << 18, "[7]")
-    if not torch.equal(ikh["inst"][ikh["prim"] >= 0], ith["inst"][ikh["prim"] >= 0]):
-        raise AssertionError("instance ids differ between kernel and twin")
-    i_hit = ikh["prim"] >= 0
-    i9 = torch.as_tensor(i_row9, device=dev).to(torch.int64)
-    if not bool((i9[ikh["slot"][i_hit].to(torch.int64)].to(torch.int32) == ikh["prim"][i_hit]).all()):
-        raise AssertionError("two-instance TLAS: slot does not name the hit prim")
-    iok = clustered.intersect_any_clustered(ic, i_rays)
-    iot = clustered.intersect_any_twin(ic, i_rays)
-    any_off.append((iok != iot).float().mean().item())
-    i_agree = 1.0 - any_off[1]
-    print(f"[7] two-instance any-hit: rays={1 << 18} agreement={i_agree:.7f} "
-          f"any==closest-hit {(iok == i_hit).float().mean().item():.7f} "
-          f"instances hit {sorted(set(ikh['inst'][i_hit].tolist()))}")
-    if i_agree < 1.0 - 1e-4:
-        raise AssertionError("two-instance any-hit kernel disagrees with its twin")
-    results["clustered_closest"] = max(e_p, e_b, e_i)
-    # any-hit gives a boolean: its error is the share of lanes that differ
-    results["clustered_any"] = max(any_off)
+    i9 = torch.as_tensor(i_row9, device=dev)
+    ith = check_clustered("[7]", "two-instance TLAS", clustered, ic, i_rays, row9=i9)
+    i_hit = ith["prim"] >= 0
+    iot = check_clustered("[7]", "two-instance TLAS any-hit", clustered, ic, i_rays,
+                          any_hit=True)
+    print(f"[7] two-instance: any == closest-hit {(iot == i_hit).float().mean().item():.7f}, "
+          f"instances hit {sorted(set(ith['inst'][i_hit].tolist()))}")
+    if sorted(set(ith["inst"][i_hit].tolist())) != [0, 1]:
+        raise AssertionError("two-instance TLAS: not both instances hit")
+    # bit-equal: no error on any value, no lane differing
+    results["clustered_closest"] = 0.0
+    results["clustered_any"] = 0.0
 
     def sweep_traced(rays, d):
         if d == 0:
@@ -824,30 +880,42 @@ def main() -> None:
         "final_resolve": (lambda: kernels.final(cfg2, sv2, sweep_dev, st, rays, pend, trf),
                           lambda: pf.final_twin(cfg2, sv2, sweep_dev, st, rays, pend, trf)),
     }, reps)
-    # the work these inputs need: the twins count the kernels' slab and
-    # triangle tests and the table entries they read (each once); a dead
-    # lane reads only its tmax, a live one its 7 floats
-    cs, ca = {"slab": 0, "tri": 0}, {"slab": 0, "tri": 0}
-    clustered.intersect_closest_twin(c, rad_view, cs)
-    clustered.intersect_any_twin(c, occ_view, ca)
-    for name, st_, view in (("closest", cs, rad_view), ("any", ca, occ_view)):
-        print(f"[9] {name}: {view.shape[1]} rays, {int((view[6] > 0).sum())} live, "
-              f"{st_['slab']} slab and {st_['tri']} triangle tests, table bytes read "
-              f"{st_['table_bytes']} of {nbytes(*(c[k] for k in clustered._TABLE_KEYS))}, "
-              f"entries {json.dumps({k: int(v.sum()) for k, v in st_['read'].items()})}")
-
+    # the work these inputs need: the twins count the kernels' slab,
+    # triangle and key-bound tests and the table entries they read (each
+    # once); a dead lane reads only its tmax, a live one its 7 floats.
+    # Counted twice: the front-to-back walk of the kernels, and the
+    # table-order walk of the PR-4 design, whose bounds PERF.md kept
     def ray_bytes(view):
         return 4 * view.shape[1] + 24 * int((view[6] > 0).sum())
+
+    walk_bounds = {}
+    for walk, kw in (("front to back", {}), ("table order (PR 4)",
+                                             {"order": "table", "early_exit": False})):
+        cs, ca = {"slab": 0, "tri": 0}, {"slab": 0, "tri": 0}
+        clustered.intersect_closest_twin(c, rad_view, cs, **kw)
+        clustered.intersect_any_twin(c, occ_view, ca, **kw)
+        walk_bounds[walk] = {
+            "clustered_closest": bound(ray_bytes(rad_view) + cs["table_bytes"]
+                                       + 24 * rad_view.shape[1],
+                                       cs["slab"] * SLAB_OPS + cs["tri"] * TRI_OPS
+                                       + cs["key"] * KEY_OPS),
+            "clustered_any": bound(ray_bytes(occ_view) + ca["table_bytes"] + occ_view.shape[1],
+                                   ca["slab"] * SLAB_OPS + ca["tri"] * TRI_OPS
+                                   + ca["key"] * KEY_OPS)}
+        for name, st_, view in (("closest", cs, rad_view), ("any", ca, occ_view)):
+            b_ms, b_by = walk_bounds[walk][f"clustered_{name}"]
+            print(f"[9] {name}, {walk}: {view.shape[1]} rays, {int((view[6] > 0).sum())} live, "
+                  f"{st_['slab']} slab, {st_['tri']} triangle and {st_['key']} key-bound "
+                  f"tests, table bytes read {st_['table_bytes']} of "
+                  f"{nbytes(*(c[k] for k in clustered._TABLE_KEYS))}, entries "
+                  f"{json.dumps({k: int(v.sum()) for k, v in st_['read'].items()})}; bound "
+                  f"{b_ms:.4f} ms ({b_by})")
 
     hit_slots = torch.unique(slots[slots >= 0]).numel()
     print(f"[9] slot fetch: {slots.shape[0]} lanes, {int((slots >= 0).sum())} hits, "
           f"{hit_slots} distinct slots")
     bounds2 = {
-        "clustered_closest": bound(ray_bytes(rad_view) + cs["table_bytes"]
-                                   + 24 * rad_view.shape[1],
-                                   cs["slab"] * SLAB_OPS + cs["tri"] * TRI_OPS),
-        "clustered_any": bound(ray_bytes(occ_view) + ca["table_bytes"] + occ_view.shape[1],
-                               ca["slab"] * SLAB_OPS + ca["tri"] * TRI_OPS),
+        **walk_bounds["front to back"],
         # 26 planes written for every lane, read for each distinct hit slot
         "slot_fetch": bound(nbytes(slots) + 4 * slot_fetch.A_USED * (slots.shape[0] + hit_slots),
                             0),
@@ -861,6 +929,44 @@ def main() -> None:
     }
     for k, (ms, by) in bounds2.items():
         print(f"[9] {k}: bound {ms:.4f} ms ({by})")
+
+    # B4/B5 in every kept variant, in turns: CUDA events around the wrapper
+    # calls (the kernel table's times) and CUDA-graph replays (device time
+    # alone); at the d = 1 blocks, the primaries, and two floors: all lanes
+    # dead, and one live ray (the closest block's) a block of the kernel
+    live_idx = torch.nonzero(rad_view[6] > 0.0).flatten()
+    dead9 = rad_view.clone()
+    dead9[6] = -1.0
+    lone9 = dead9.clone()
+    first = torch.arange(0, lone9.shape[1], clustered.BLOCK, device=dev)
+    lone9[:, first] = rad_view[:, live_idx[:first.numel()]]
+    variant_ms = {}
+    for name, view, any_hit in (("B4 d=1 closest block", rad_view, False),
+                                ("B5 d=1 occlusion blocks", occ_view, True),
+                                ("B4 primaries", r0, False),
+                                ("B4 floor, all lanes dead", dead9, False),
+                                ("B4 floor, one live lane a block", lone9, False)):
+        fn = clustered.intersect_any_clustered if any_hit else \
+            clustered.intersect_closest_clustered
+        fns = {("staged" if sv_ else "global"): (lambda sv_=sv_: fn(c, view, staged=sv_))
+               for sv_ in clustered_variants(clustered, c)}
+        ev = {k: [] for k in fns}
+        gr = {k: [] for k in fns}
+        for rnd in range(2):
+            for k in (list(fns) if rnd == 0 else list(fns)[::-1]):
+                ev[k].append(cuda_ms(fns[k], 10))
+                gr[k].append(graph_ms(fns[k]))
+        variant_ms[name] = {k: (sum(ev[k]) / 2, sum(gr[k]) / 2) for k in fns}
+        print(f"[9] {name}: rays={view.shape[1]} live={int((view[6] > 0).sum())} " + ", ".join(
+            f"{k} {e:.4f} ms (events), {g:.4f} ms (graph)"
+            for k, (e, g) in variant_ms[name].items()))
+    for name, key, was in (("B4 d=1 closest block", "clustered_closest", PR4_MS["B4"]),
+                           ("B5 d=1 occlusion blocks", "clustered_any", PR4_MS["B5"])):
+        now = variant_ms[name]["staged" if "staged" in variant_ms[name] else "global"][0]
+        print(f"[9] {name}: {now:.4f} ms against the PR-4 design's {was} ms (PR 4 run 5): "
+              f"{was / now:.2f}x; bound {walk_bounds['front to back'][key][0]:.4f} ms "
+              f"(front to back), {walk_bounds['table order (PR 4)'][key][0]:.4f} ms "
+              "(table order)")
     phase_done(9, t0)
 
     # ---- 10: dense any-hit (B3) vs its twin: bit-equal masks

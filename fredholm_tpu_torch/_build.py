@@ -173,11 +173,6 @@ def lib():
             fn.argtypes = [vp, ll, i, vp, vp, vp, i, i, vp, vp, vp, i, vp, vp, vp, i, i,
                            vp, vp, vp, vp, vp, vp, vp, vp]
             fn.restype = i
-        for name in ("fh_clustered_v4_closest", "fh_clustered_v4_any"):
-            fn = getattr(handle, name)
-            fn.argtypes = [vp, ll, i, vp, vp, vp, vp, i, i, vp, vp, i, vp, vp, ll,
-                           vp, vp, vp, vp, vp, vp, vp, vp]
-            fn.restype = i
         for name in ("fh_resident_closest", "fh_resident_any"):
             fn = getattr(handle, name)
             fn.argtypes = [vp, ll, i, vp, vp, i, i, vp, ll, vp, vp, vp, vp, vp, vp]

@@ -60,6 +60,8 @@ _TABLE_KEYS = ("root_aabb", "sc_aabb", "sc_mcount", "sc_order", "sc_key", "cl_me
 _RECORD_KEYS = ("inst_rec", "inst_xf", "sc_rec", "cl_rec", "grp_rec", "tri_rec")
 _INT_KEYS = ("sc_mcount", "sc_order", "inst_sc")
 
+# rays a block of csrc/clustered.cu (kBlock)
+BLOCK = 256
 # csrc/clustered.cu: the staged variant copies the supercluster records,
 # the visit orders and keys and the member-cluster records into each
 # block's shared memory when they take at most this many bytes
@@ -476,10 +478,6 @@ def intersect_any_twin(c: Dict, rays: torch.Tensor, stats=None, order="ray",
 # ---------------------------------------------------------------------------
 # wrappers
 
-# variant bits of the C entry points (csrc/clustered.cu kStaged, kWarp)
-_STAGED, _WARP = 1, 2
-
-
 def _check(c: Dict, rays: torch.Tensor) -> None:
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
         raise ValueError(f"rays must be [7, M] float32, got {tuple(rays.shape)} {rays.dtype}")
@@ -502,19 +500,17 @@ def _check(c: Dict, rays: torch.Tensor) -> None:
             raise ValueError(f"table {k} must be {shape}, got {tuple(c[k].shape)}")
 
 
-def _variant(c: Dict, coherent: bool, staged: Optional[bool]) -> int:
-    """The kernel variant: staged where the top levels fit in shared memory
-    (or as asked), warp-cooperative for incoherent traces."""
+def _staged(c: Dict, staged: Optional[bool]) -> bool:
+    """Whether a launch takes the staged kernel: where the top levels fit
+    in shared memory, or as asked."""
     fits = stage_bytes(c) <= STAGE_BYTES_MAX
-    if staged is None:
-        staged = fits
-    elif staged and not fits:
+    if staged and not fits:
         raise ValueError(f"the staged kernel takes at most {STAGE_BYTES_MAX} B of tables, "
                          f"these need {stage_bytes(c)}")
-    return (_STAGED if staged else 0) | (0 if coherent else _WARP)
+    return fits if staged is None else staged
 
 
-def _launch(fn_name: str, count_name: str, c: Dict, rays, outs, variant: int) -> None:
+def _launch(fn_name: str, count_name: str, c: Dict, rays, outs, staged: bool) -> None:
     lib = _build.lib()
     m = rays.shape[1]
     ptrs = [outs.get(k) for k in ("t", "prim", "u", "v", "inst", "slot", "occluded")]
@@ -526,20 +522,19 @@ def _launch(fn_name: str, count_name: str, c: Dict, rays, outs, variant: int) ->
         int(c["identity"]), c["sc_rec"].data_ptr(), c["sc_order"].data_ptr(),
         c["sc_key"].data_ptr(), c["sc_rec"].shape[0], c["cl_rec"].data_ptr(),
         c["grp_rec"].data_ptr(), c["tri_rec"].data_ptr(), c["cl_rec"].shape[0],
-        variant, *ptrs, stream,
+        int(staged), *ptrs, stream,
     )
     _build.check(err, count_name)
     _build.LAUNCHES[count_name] += 1
 
 
-def intersect_closest_clustered(c: Dict, rays: torch.Tensor, coherent: bool = False,
+def intersect_closest_clustered(c: Dict, rays: torch.Tensor,
                                 staged: Optional[bool] = None) -> Dict:
     """Closest hit of every ray of the [7, M] view `rays` through the
     clustered tables `c` (prepare_clustered). Returns {t f32, prim i32,
-    u f32, v f32, inst i32, slot i32}, each [M]. coherent: neighbouring
-    rays take similar walks (primaries): one lane a ray; else a warp walks
-    each live ray in turn. staged: stage the top levels in shared memory
-    (default: where they fit)."""
+    u f32, v f32, inst i32, slot i32}, each [M]. staged: the kernel that
+    stages the top levels in shared memory (default: where they fit;
+    False reads them from global memory)."""
     _check(c, rays)
     if rays.device.type == "cpu":
         return intersect_closest_twin(c, rays)
@@ -550,21 +545,19 @@ def intersect_closest_clustered(c: Dict, rays: torch.Tensor, coherent: bool = Fa
     outs = {k: torch.empty(m, dtype=dt, device=rays.device)
             for k, dt in (("t", f32), ("prim", i32), ("u", f32), ("v", f32),
                           ("inst", i32), ("slot", i32))}
-    _launch("fh_clustered_closest", "clustered_closest", c, rays, outs,
-            _variant(c, coherent, staged))
+    _launch("fh_clustered_closest", "clustered_closest", c, rays, outs, _staged(c, staged))
     return outs
 
 
-def intersect_any_clustered(c: Dict, rays: torch.Tensor, coherent: bool = False,
+def intersect_any_clustered(c: Dict, rays: torch.Tensor,
                             staged: Optional[bool] = None) -> torch.Tensor:
-    """Occlusion of every ray of the [7, M] view `rays`: bool [M];
-    coherent and staged as for the closest hit."""
+    """Occlusion of every ray of the [7, M] view `rays`: bool [M]; staged
+    as for the closest hit."""
     _check(c, rays)
     if rays.device.type == "cpu":
         return intersect_any_twin(c, rays)
     if rays.device.type != "cuda":
         raise NotImplementedError(f"no clustered kernel for device {rays.device}")
     occ = torch.empty(rays.shape[1], dtype=torch.bool, device=rays.device)
-    _launch("fh_clustered_any", "clustered_any", c, rays, {"occluded": occ},
-            _variant(c, coherent, staged))
+    _launch("fh_clustered_any", "clustered_any", c, rays, {"occluded": occ}, _staged(c, staged))
     return occ

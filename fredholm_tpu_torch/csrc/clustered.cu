@@ -32,27 +32,30 @@
 // the reference layout's lane-major columns took six to nine scalar loads
 // a table row apart.
 //
-// Variants (template flags; the wrapper picks them):
-//  - kStaged: each block copies the supercluster records, the visit
-//    orders and keys and the member-cluster records into shared memory
-//    (cp.async) when they take at most kStageBytesMax; above that the same
-//    records are read from global memory.
-//  - kWarp (incoherent traces): a warp walks its live rays one at a time,
-//    32 supercluster, member-cluster or triangle records of that ray at
-//    once, ballots the boxes that pass and visits them in order, each
-//    re-gated against the best t of the moment; a cluster's triangles are
-//    tested 32 at a time, reduced to each group's first (t, slot) minimum
-//    (__shfl_xor_sync) and the group walk replayed in order, which is the
-//    one-lane walk's result exactly. Else (coherent traces) one lane walks
-//    one ray.
+// One warp a ray: a warp takes its live rays one at a time and tests 32
+// of that ray's order positions (key bound and supercluster box) or
+// member-cluster boxes at once, ballots the ones that pass and visits
+// them in order, each re-gated against the best t of the moment. In a
+// cluster, lanes 0-7 test the group boxes; the groups that pass are tested
+// two a round, a half-warp each (16 triangles a lane), reduced to each
+// group's first (t, slot) minimum (__shfl_xor_sync), and the group walk is
+// then replayed in order: the result of one lane walking the ray alone
+// (the twin's walk), bit for bit. Any-hit leaves at the first hit
+// (__any_sync). With kStaged each block first copies the supercluster
+// records, the visit orders and keys and the member-cluster records into
+// shared memory (cp.async) when they take at most kStageBytesMax; above
+// that the same records are read from global memory.
 //
 // Bounds on the H100 at the hosek sweep's shapes that chip_smoke.py times
 // (PERF.md has the numbers): the closest hit by bytes, the any-hit by
 // operations, both far below what a chain of dependent loads allows: each
-// level's loads wait on the previous level's test. The front-to-back exit
-// shortens the chain, the records cut each link to one or two loads,
-// shared memory serves the top levels at its latency, and the warp walk
-// turns a live ray's chain of serial tests into loads issued 32 at a time.
+// level's loads wait on the previous level's test, and a warp walks its
+// live rays in turn. The front-to-back exit shortens the chain, the
+// records cut each link to one or two loads, and the warp issues a ray's
+// 32 tests of a level at once where one lane a ray (the PR-4 design, and
+// the first steps of this one: PERF.md section 7) walked them in turn,
+// its warp stalled on the slowest lane. Closest hit builds for one block
+// an SM (no spills), any-hit for three.
 #include "common.cuh"
 
 namespace {
@@ -77,7 +80,6 @@ struct Tables {
   const float4* grp_rec;   // [C * 8, 2] group boxes
   const float4* tri_rec;   // [C * 128, 3] v0 | prim (float), e1 | 0, e2 | 0
   int n_inst, n_sc, n_cl, identity;
-  bool compact;  // DEV
 };
 
 struct Out {
@@ -161,11 +163,6 @@ __device__ __forceinline__ void slab_rec(const float4& lo, const float4& hi, con
   slab_t(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r, tn, tf);
 }
 
-__device__ __forceinline__ bool slab_rec_gate(const float4& lo, const float4& hi, const Ray& r,
-                                              float t_best) {
-  return slab_box(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r, t_best);
-}
-
 // the ray in instance space (rows of the world -> object affine)
 __device__ __forceinline__ Ray to_object(const float4* xf, const Ray& w) {
   const float4 a = __ldg(xf), b = __ldg(xf + 1), c = __ldg(xf + 2);
@@ -205,11 +202,6 @@ __device__ __forceinline__ Order order_of(const Ray& r) {
   return c;
 }
 
-// the (t, inst, slot) rule of a valid hit (t, slot) of instance in
-__device__ __forceinline__ bool better(const Hit& h, float t, int in, int slot) {
-  return t < h.t || (t == h.t && h.slot >= 0 && (in < h.inst || (in == h.inst && slot < h.slot)));
-}
-
 __device__ __forceinline__ MtHit mt_rec(const float4* q, const Ray& r) {
   const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
   return moller_trumbore(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, a.x, a.y, a.z, b.x, b.y, b.z, c.x,
@@ -217,144 +209,26 @@ __device__ __forceinline__ MtHit mt_rec(const float4* q, const Ray& r) {
 }
 
 // ---------------------------------------------------------------------------
-// one lane a ray
+// the warp's walk of one ray: every value below is the same in all lanes
+// but the per-lane temporaries of the 32-wide tests
 
-// cluster cid (cnt triangles) of instance in: its groups, each gated by
-// its box, then their triangles. Returns true at any-hit's first hit.
+// cluster cid (cnt triangles) of instance in. Returns true at any-hit's
+// first hit.
 template <bool kAny>
-__device__ __forceinline__ bool lane_cluster(const Tables& tb, const Ray& r, int in, int cid,
-                                             int cnt, Hit& h) {
-  const float4* g = tb.grp_rec + (long long)cid * (2 * kGroups);
-  const float4* q = tb.tri_rec + (long long)cid * (3 * kCluster);
-  for (int gi = 0; gi < kGroups && gi * kTriGroup < cnt; ++gi) {
-    if (!slab_rec_gate(__ldg(g + 2 * gi), __ldg(g + 2 * gi + 1), r, h.t)) continue;
-    const int k_end = min(cnt, (gi + 1) * kTriGroup);
-    for (int k = gi * kTriGroup; k < k_end; ++k) {
-      const MtHit m = mt_rec(q + 3 * k, r);
-      if (!m.valid) continue;
-      if (kAny) {
-        if (m.t < h.t) return true;
-        continue;
-      }
-      const int slot = cid * kCluster + k;
-      if (better(h, m.t, in, slot)) {
-        h.t = m.t;
-        h.slot = slot;
-        h.inst = in;
-        h.u = m.u;
-        h.v = m.v;
-      }
-    }
-  }
-  return false;
-}
-
-// supercluster s: its member clusters in table order, gated against the
-// best t of the moment. kTwoPass gates 32 members at the best t on entry,
-// then walks the passing ones, each re-gated.
-template <bool kAny, bool kShared, bool kTwoPass>
-__device__ __forceinline__ bool lane_sc(const Tables& tb, const Top& top, const Ray& r, int in,
-                                        int s, Hit& h) {
-  const float4 lo = ld4<kShared>(top.sc + 2 * s), hi = ld4<kShared>(top.sc + 2 * s + 1);
-  if (!slab_rec_gate(lo, hi, r, h.t)) return false;
-  const int mcount = __float_as_int(lo.w);
-  const float4* cl = top.cl + 2 * __float_as_int(hi.w);
-  if (kTwoPass) {
-    for (int j0 = 0; j0 < mcount; j0 += 32) {
-      const int jn = min(32, mcount - j0);
-      unsigned bits = 0;
-      for (int b = 0; b < jn; ++b) {
-        if (slab_rec_gate(ld4<kShared>(cl + 2 * (j0 + b)), ld4<kShared>(cl + 2 * (j0 + b) + 1),
-                          r, h.t))
-          bits |= 1u << b;
-      }
-      while (bits) {
-        const int j = j0 + __ffs(bits) - 1;
-        bits &= bits - 1;
-        const float4 clo = ld4<kShared>(cl + 2 * j), chi = ld4<kShared>(cl + 2 * j + 1);
-        if (!slab_rec_gate(clo, chi, r, h.t)) continue;
-        if (lane_cluster<kAny>(tb, r, in, (int)chi.w, (int)clo.w, h)) return true;
-      }
-    }
-    return false;
-  }
-  for (int j = 0; j < mcount; ++j) {
-    const float4 clo = ld4<kShared>(cl + 2 * j), chi = ld4<kShared>(cl + 2 * j + 1);
-    if (!slab_rec_gate(clo, chi, r, h.t)) continue;
-    if (lane_cluster<kAny>(tb, r, in, (int)chi.w, (int)clo.w, h)) return true;
-  }
-  return false;
-}
-
-// the ray w (alive) through every instance; h.t holds its tmax on entry.
-// kOrdered: front to back with the exit; else the superclusters in table
-// order without it.
-template <bool kAny, bool kShared, bool kOrdered, bool kTwoPass>
-__device__ __forceinline__ bool lane_walk(const Tables& tb, const Top& top, const Ray& w, Hit& h) {
-  h.t = fminf(h.t, root_exit_clamp(tb.root, w));
-  for (int in = 0; in < tb.n_inst; ++in) {
-    const float4 ilo = __ldg(tb.inst_rec + 2 * in), ihi = __ldg(tb.inst_rec + 2 * in + 1);
-    if (!slab_rec_gate(ilo, ihi, w, h.t)) continue;
-    const Ray r = tb.identity ? w : to_object(tb.inst_xf + 3 * in, w);
-    const int sc_lo = __float_as_int(ilo.w), sc_n = __float_as_int(ihi.w);
-    if (!kOrdered) {
-      for (int s = sc_lo; s < sc_lo + sc_n; ++s)
-        if (lane_sc<kAny, kShared, kTwoPass>(tb, top, r, in, s, h)) return true;
-      continue;
-    }
-    const Order oc = order_of(r);
-    const int base = oc.o * tb.n_sc + sc_lo;
-    for (int k = 0; k < sc_n; ++k) {
-      if (oc.exit_ok && (ld1<kShared>(top.key + base + k) - oc.op) * oc.ip > h.t) break;
-      if (lane_sc<kAny, kShared, kTwoPass>(tb, top, r, in, ld1<kShared>(top.order + base + k), h))
-        return true;
-    }
-  }
-  return false;
-}
-
-// ---------------------------------------------------------------------------
-// one segment of kW lanes of a warp a ray (every value below is the same in
-// the segment's lanes, but the per-lane temporaries of the kW-wide tests)
-
-template <int kW>
-struct Seg {
-  unsigned mask;  // the segment's lanes in the warp
-  int base;       // its first lane in the warp
-  int lane;       // this thread's lane in the segment
-
-  __device__ __forceinline__ unsigned ballot(bool p) const {
-    const unsigned b = __ballot_sync(mask, p) >> base;
-    return kW == 32 ? b : b & ((1u << (kW & 31)) - 1);
-  }
-  template <typename T>
-  __device__ __forceinline__ T shfl(T v, int src) const {
-    return __shfl_sync(mask, v, src, kW);
-  }
-  template <typename T>
-  __device__ __forceinline__ T shfl_xor(T v, int off) const {
-    return __shfl_xor_sync(mask, v, off, kW);
-  }
-  __device__ __forceinline__ bool any(bool p) const { return __any_sync(mask, p) != 0; }
-};
-
-// cluster cid of instance in: the group boxes in lanes 0-7, the
-// triangles of the groups that pass on entry kW at a time, each group's
-// first (t, slot) minimum, then the group walk replayed in order
-template <bool kAny, int kW>
-__device__ __forceinline__ bool seg_cluster(const Tables& tb, const Ray& r, int in, int cid,
-                                            int cnt, const Seg<kW>& sg, Hit& h, bool compact) {
-  constexpr int kRounds = kCluster / kW, kPer = kW / kTriGroup;  // groups a round
-  constexpr unsigned kPerMask = (1u << kPer) - 1;
-  const int lane = sg.lane;
+__device__ __forceinline__ bool warp_cluster(const Tables& tb, const Ray& r, int in, int cid,
+                                             int cnt, int lane, Hit& h) {
   float gtn = 0.0f, gtf = -1.0f;
   if (lane < kGroups && lane * kTriGroup < cnt) {
     const float4* g = tb.grp_rec + (long long)cid * (2 * kGroups) + 2 * lane;
     slab_rec(__ldg(g), __ldg(g + 1), r, gtn, gtf);
   }
+  // the groups that pass at the best t on entry hold every candidate
   const float entry = h.t;
-  const unsigned gbits = sg.ballot(gate(gtn, gtf, entry)) & ((1u << kGroups) - 1);
-  if (!gbits) return false;
+  unsigned rem = __ballot_sync(kFull, gate(gtn, gtf, entry)) & ((1u << kGroups) - 1);
+  if (!rem) return false;
+  const unsigned gbits = rem;
+  // a hit at exactly the entry best t wins when this cluster's slots come
+  // before the best hit's in (inst, slot)
   const bool tie_ok = !kAny && h.slot >= 0 &&
                       (in < h.inst || (in == h.inst && cid * kCluster < h.slot));
   const float4* q = tb.tri_rec + (long long)cid * (3 * kCluster);
@@ -362,99 +236,58 @@ __device__ __forceinline__ bool seg_cluster(const Tables& tb, const Ray& r, int 
   // lane g < 8 ends up holding group g's first (t, slot) minimum
   float my_gt = inf;
   int my_gk = kCluster;
-  if (compact && kW == 32) {
-    // the passing groups two a round, one a half-warp
-    unsigned rem = gbits;
-    while (rem) {
-      const int g0 = __ffs(rem) - 1;
-      rem &= rem - 1;
-      const int g1 = rem ? __ffs(rem) - 1 : -1;
-      if (rem) rem &= rem - 1;
-      const int g = lane < kTriGroup ? g0 : g1;
-      const int k = g * kTriGroup + (lane & (kTriGroup - 1));
-      float t = inf;
-      int kk = kCluster;
-      if (g >= 0 && k < cnt) {
-        const MtHit m = mt_rec(q + 3 * k, r);
-        if (m.valid && (m.t < entry || (tie_ok && m.t == entry))) {
-          t = m.t;
-          kk = k;
-        }
-      }
-      if (kAny) {
-        if (sg.any(t < inf)) return true;
-        continue;
-      }
-#pragma unroll
-      for (int off = kTriGroup / 2; off > 0; off >>= 1) {
-        const float ot = sg.shfl_xor(t, off);
-        const int ok = sg.shfl_xor(kk, off);
-        if (ot < t || (ot == t && ok < kk)) {
-          t = ot;
-          kk = ok;
-        }
-      }
-      const float t0 = sg.shfl(t, 0), t1 = sg.shfl(t, kTriGroup);
-      const int k0 = sg.shfl(kk, 0), k1 = sg.shfl(kk, kTriGroup);
-      if (lane == g0) {
-        my_gt = t0;
-        my_gk = k0;
-      }
-      if (lane == g1) {
-        my_gt = t1;
-        my_gk = k1;
+  while (rem) {
+    const int g0 = __ffs(rem) - 1;
+    rem &= rem - 1;
+    const int g1 = rem ? __ffs(rem) - 1 : -1;
+    if (rem) rem &= rem - 1;
+    const int g = lane < kTriGroup ? g0 : g1;
+    const int k = g * kTriGroup + (lane & (kTriGroup - 1));
+    float t = inf;
+    int kk = kCluster;
+    if (g >= 0 && k < cnt) {
+      const MtHit m = mt_rec(q + 3 * k, r);
+      if (m.valid && (m.t < entry || (tie_ok && m.t == entry))) {
+        t = m.t;
+        kk = k;
       }
     }
-  } else {
+    if (kAny) {
+      if (__any_sync(kFull, t < inf)) return true;
+      continue;
+    }
 #pragma unroll
-    for (int rr = 0; rr < kRounds; ++rr) {
-      const int k = rr * kW + lane;
-      float t = inf;
-      int kk = kCluster;
-      if ((gbits >> (rr * kPer)) & kPerMask) {
-        if (((gbits >> (k / kTriGroup)) & 1u) && k < cnt) {
-          const MtHit m = mt_rec(q + 3 * k, r);
-          if (m.valid && (m.t < entry || (tie_ok && m.t == entry))) {
-            t = m.t;
-            kk = k;
-          }
-        }
+    for (int off = kTriGroup / 2; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(kFull, t, off);
+      const int ok = __shfl_xor_sync(kFull, kk, off);
+      if (ot < t || (ot == t && ok < kk)) {
+        t = ot;
+        kk = ok;
       }
-      if (kAny) {
-        if (sg.any(t < inf)) return true;
-        continue;
-      }
-#pragma unroll
-      for (int off = kTriGroup / 2; off > 0; off >>= 1) {
-        const float ot = sg.shfl_xor(t, off);
-        const int ok = sg.shfl_xor(kk, off);
-        if (ot < t || (ot == t && ok < kk)) {
-          t = ot;
-          kk = ok;
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < kPer; ++p) {
-        const float tp = sg.shfl(t, p * kTriGroup);
-        const int kp = sg.shfl(kk, p * kTriGroup);
-        if (lane == rr * kPer + p) {
-          my_gt = tp;
-          my_gk = kp;
-        }
-      }
+    }
+    const float t0 = __shfl_sync(kFull, t, 0), t1 = __shfl_sync(kFull, t, kTriGroup);
+    const int k0 = __shfl_sync(kFull, kk, 0), k1 = __shfl_sync(kFull, kk, kTriGroup);
+    if (lane == g0) {
+      my_gt = t0;
+      my_gk = k0;
+    }
+    if (lane == g1) {
+      my_gt = t1;
+      my_gk = k1;
     }
   }
   if (kAny) return false;
+  // the one-lane walk: each group gated against the best t the earlier
+  // groups left, then its minimum by the (t, slot) rule
   float cur = entry;
   bool cur_tie = tie_ok;
   int win = -1;
 #pragma unroll
   for (int g = 0; g < kGroups; ++g) {
-    const float tn_g = sg.shfl(gtn, g), tf_g = sg.shfl(gtf, g);
-    const float gt = sg.shfl(my_gt, g);
-    const int gk = sg.shfl(my_gk, g);
-    if (((gbits >> g) & 1u) && gate(tn_g, tf_g, cur) &&
-        (gt < cur || (cur_tie && gt == cur))) {
+    const float tn_g = __shfl_sync(kFull, gtn, g), tf_g = __shfl_sync(kFull, gtf, g);
+    const float gt = __shfl_sync(kFull, my_gt, g);
+    const int gk = __shfl_sync(kFull, my_gk, g);
+    if (((gbits >> g) & 1u) && gate(tn_g, tf_g, cur) && (gt < cur || (cur_tie && gt == cur))) {
       cur = gt;
       win = gk;
       cur_tie = false;
@@ -471,14 +304,15 @@ __device__ __forceinline__ bool seg_cluster(const Tables& tb, const Ray& r, int 
   return false;
 }
 
-template <bool kAny, bool kShared, int kW>
-__device__ __forceinline__ bool seg_sc(const Tables& tb, const Top& top, const Ray& r, int in,
-                                       int s, const Seg<kW>& sg, Hit& h, bool compact) {
+// supercluster s: its member clusters in table order
+template <bool kAny, bool kShared>
+__device__ __forceinline__ bool warp_sc(const Tables& tb, const Top& top, const Ray& r, int in,
+                                        int s, int lane, Hit& h) {
   const float4 lo = ld4<kShared>(top.sc + 2 * s), hi = ld4<kShared>(top.sc + 2 * s + 1);
   const int mcount = __float_as_int(lo.w);
   const float4* cl = top.cl + 2 * __float_as_int(hi.w);
-  for (int j0 = 0; j0 < mcount; j0 += kW) {
-    const int j = j0 + sg.lane;
+  for (int j0 = 0; j0 < mcount; j0 += 32) {
+    const int j = j0 + lane;
     float tn = 0.0f, tf = -1.0f;
     int cnt = 0, cid = 0;
     if (j < mcount) {
@@ -487,38 +321,39 @@ __device__ __forceinline__ bool seg_sc(const Tables& tb, const Top& top, const R
       cnt = (int)clo.w;
       cid = (int)chi.w;
     }
-    unsigned bits = sg.ballot(gate(tn, tf, h.t));
+    unsigned bits = __ballot_sync(kFull, gate(tn, tf, h.t));
     while (bits) {
       const int p = __ffs(bits) - 1;
       bits &= bits - 1;
-      const float tn_p = sg.shfl(tn, p), tf_p = sg.shfl(tf, p);
-      const int cid_p = sg.shfl(cid, p), cnt_p = sg.shfl(cnt, p);
+      const float tn_p = __shfl_sync(kFull, tn, p), tf_p = __shfl_sync(kFull, tf, p);
+      const int cid_p = __shfl_sync(kFull, cid, p), cnt_p = __shfl_sync(kFull, cnt, p);
       if (!gate(tn_p, tf_p, h.t)) continue;
-      if (seg_cluster<kAny, kW>(tb, r, in, cid_p, cnt_p, sg, h, compact)) return true;
+      if (warp_cluster<kAny>(tb, r, in, cid_p, cnt_p, lane, h)) return true;
     }
   }
   return false;
 }
 
-// The ray w through every instance, front to back. Positions are tested
-// kW at a time (key bound, supercluster box) and the ones that pass or
-// exit visited in order: a skipped position fails its gate at the best t
-// of the ballot and so later, and keys ascend, so the first exit a lane
-// walk would take is taken at the next visited position at the latest.
-template <bool kAny, bool kShared, int kW>
-__device__ __forceinline__ bool seg_walk(const Tables& tb, const Top& top, const Ray& w,
-                                         const Seg<kW>& sg, Hit& h, bool compact) {
+// The ray w (alive; h.t its tmax) through every instance, front to back.
+// Positions are tested 32 at a time (key bound, supercluster box) and the
+// ones that pass or exit visited in order: a skipped position fails its
+// gate at the best t of the ballot and so later, and keys ascend, so the
+// first exit the one-lane walk takes is taken at the next visited
+// position at the latest. Returns true at any-hit's first hit.
+template <bool kAny, bool kShared>
+__device__ __forceinline__ bool warp_walk(const Tables& tb, const Top& top, const Ray& w, int lane,
+                                          Hit& h) {
   h.t = fminf(h.t, root_exit_clamp(tb.root, w));
   for (int in = 0; in < tb.n_inst; ++in) {
     const float4 ilo = __ldg(tb.inst_rec + 2 * in), ihi = __ldg(tb.inst_rec + 2 * in + 1);
-    if (!slab_rec_gate(ilo, ihi, w, h.t)) continue;
+    if (!slab_box(ilo.x, ilo.y, ilo.z, ihi.x, ihi.y, ihi.z, w, h.t)) continue;
     const Ray r = tb.identity ? w : to_object(tb.inst_xf + 3 * in, w);
     const int sc_lo = __float_as_int(ilo.w), sc_n = __float_as_int(ihi.w);
     const Order oc = order_of(r);
     const int base = oc.o * tb.n_sc + sc_lo;
     bool stop = false;
-    for (int k0 = 0; k0 < sc_n && !stop; k0 += kW) {
-      const int k = k0 + sg.lane;
+    for (int k0 = 0; k0 < sc_n && !stop; k0 += 32) {
+      const int k = k0 + lane;
       float lb = 0.0f, tn = 0.0f, tf = -1.0f;
       int s = 0;
       if (k < sc_n) {
@@ -527,19 +362,19 @@ __device__ __forceinline__ bool seg_walk(const Tables& tb, const Top& top, const
         slab_rec(ld4<kShared>(top.sc + 2 * s), ld4<kShared>(top.sc + 2 * s + 1), r, tn, tf);
       }
       const bool out = k < sc_n && oc.exit_ok && lb > h.t;
-      unsigned bits = sg.ballot(out || gate(tn, tf, h.t));
+      unsigned bits = __ballot_sync(kFull, out || gate(tn, tf, h.t));
       while (bits) {
         const int p = __ffs(bits) - 1;
         bits &= bits - 1;
-        const float lb_p = sg.shfl(lb, p);
-        const float tn_p = sg.shfl(tn, p), tf_p = sg.shfl(tf, p);
-        const int s_p = sg.shfl(s, p);
+        const float lb_p = __shfl_sync(kFull, lb, p);
+        const float tn_p = __shfl_sync(kFull, tn, p), tf_p = __shfl_sync(kFull, tf, p);
+        const int s_p = __shfl_sync(kFull, s, p);
         if (oc.exit_ok && lb_p > h.t) {
           stop = true;
           break;
         }
         if (!gate(tn_p, tf_p, h.t)) continue;
-        if (seg_sc<kAny, kShared, kW>(tb, top, r, in, s_p, sg, h, compact)) return true;
+        if (warp_sc<kAny, kShared>(tb, top, r, in, s_p, lane, h)) return true;
       }
     }
   }
@@ -547,7 +382,7 @@ __device__ __forceinline__ bool seg_walk(const Tables& tb, const Top& top, const
 }
 
 // ---------------------------------------------------------------------------
-// kernels
+// kernel
 
 __device__ __forceinline__ void store(const Tables& tb, const Out& out, int i, float tmax,
                                       const Hit& h, bool occ, bool any) {
@@ -565,106 +400,51 @@ __device__ __forceinline__ void store(const Tables& tb, const Out& out, int i, f
   out.slot[i] = h.slot;
 }
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, long long stride, int i) {
-  return make_ray(rays[i], rays[stride + i], rays[2 * stride + i], rays[3 * stride + i],
-                  rays[4 * stride + i], rays[5 * stride + i]);
-}
-
-template <bool kAny, bool kStaged, bool kOrdered, bool kTwoPass>
-__global__ void __launch_bounds__(kBlock)
-    k_lane(const float* __restrict__ rays, long long stride, int m, const Tables tb,
-           const Out out) {
+template <bool kAny, bool kStaged>
+__global__ void __launch_bounds__(kBlock, kAny ? 3 : 1)
+    k_clustered(const float* __restrict__ rays, long long stride, int m, const Tables tb,
+                const Out out) {
   extern __shared__ float4 smem[];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const float tmax = i < m ? rays[6 * stride + i] : 0.0f;
   const bool alive = tmax > 0.0f;
-  Hit h{tmax, -1, 0, 0.0f, 0.0f};
   Top top{tb.sc_rec, tb.cl_rec, tb.sc_key, tb.sc_order};
   if (kStaged) {
     // a block without a live lane stages nothing
-    if (!__syncthreads_or(alive)) {
-      if (i < m) store(tb, out, i, tmax, h, false, kAny);
-      return;
-    }
-    top = stage_top(smem, tb);
-  }
-  if (i >= m) return;
-  bool occ = false;
-  if (alive)
-    occ = lane_walk<kAny, kStaged, kOrdered, kTwoPass>(tb, top, load_ray(rays, stride, i), h);
-  store(tb, out, i, tmax, h, occ, kAny);
-}
-
-// A warp's live rays are handed out kSegs at a time, the q-th to segment q;
-// a segment's lane 0 stores its ray's result, each dead lane its own.
-#if defined(FH_LB_PLAIN)
-#define FH_BOUNDS __launch_bounds__(kBlock)
-#else
-#define FH_BOUNDS __launch_bounds__(kBlock, kAny ? 3 : 1)
-#endif
-template <bool kAny, bool kStaged, int kW>
-__global__ void FH_BOUNDS
-    k_warp(const float* __restrict__ rays, long long stride, int m, const Tables tb,
-           const Out out) {
-  extern __shared__ float4 smem[];
-  constexpr int kSegs = 32 / kW;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int wl = threadIdx.x & 31;
-  const float tmax = i < m ? rays[6 * stride + i] : 0.0f;
-  const bool alive = tmax > 0.0f;
-  Top top{tb.sc_rec, tb.cl_rec, tb.sc_key, tb.sc_order};
-  if (kStaged) {
     if (!__syncthreads_or(alive)) {
       if (i < m) store(tb, out, i, tmax, Hit{tmax, -1, 0, 0.0f, 0.0f}, false, kAny);
       return;
     }
     top = stage_top(smem, tb);
   }
-  const int q = wl / kW;
-  const Seg<kW> sg{kW == 32 ? kFull : ((1u << (kW & 31)) - 1) << (q * kW), q * kW, wl - q * kW};
+  Hit mine{tmax, -1, 0, 0.0f, 0.0f};
+  bool my_occ = false;
   unsigned live = __ballot_sync(kFull, alive);
   while (live) {
-    int src = -1;
-#pragma unroll
-    for (int p = 0; p < kSegs; ++p) {
-      if (live) {
-        if (p == q) src = __ffs(live) - 1;
-        live &= live - 1;
-      }
-    }
-    if (src < 0) continue;
-    const int j = i - wl + src;
+    const int src = __ffs(live) - 1;
+    live &= live - 1;
+    const int j = i - lane + src;
     Hit h{rays[6 * stride + j], -1, 0, 0.0f, 0.0f};
-    const float tmax_j = h.t;
-    const bool occ =
-        seg_walk<kAny, kStaged, kW>(tb, top, load_ray(rays, stride, j), sg, h, tb.compact);
-    if (sg.lane == 0) store(tb, out, j, tmax_j, h, occ, kAny);
+    const Ray w = make_ray(rays[j], rays[stride + j], rays[2 * stride + j],
+                           rays[3 * stride + j], rays[4 * stride + j], rays[5 * stride + j]);
+    const bool occ = warp_walk<kAny, kStaged>(tb, top, w, lane, h);
+    if (lane == src) {
+      mine = h;
+      my_occ = occ;
+    }
   }
-  if (i < m && !alive) store(tb, out, i, tmax, Hit{tmax, -1, 0, 0.0f, 0.0f}, false, kAny);
-}
-
-template <typename K>
-int go(K kernel, int m, int threads, size_t smem, cudaStream_t stream, const float* rays,
-       long long stride, const Tables& tb, const Out& out) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<(m + threads - 1) / threads, threads, smem, stream>>>(rays, stride, m, tb, out);
-  return (int)cudaGetLastError();
+  if (i < m) store(tb, out, i, tmax, mine, my_occ, kAny);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-// variant bits: 1 staged, 2 warp, 4 table order, 8 two-pass member gating
 template <bool kAny>
 int launch(const float* rays, long long stride, int m, const float* root, const float* inst_rec,
            const float* inst_xf, int n_inst, int identity, const float* sc_rec,
            const int* sc_order, const float* sc_key, int n_sc, const float* cl_rec,
-           const float* grp_rec, const float* tri_rec, int n_cl, int variant, float* t,
-           int* prim, float* u, float* v, int* inst, int* slot, unsigned char* occ,
-           cudaStream_t stream) {
+           const float* grp_rec, const float* tri_rec, int n_cl, int staged, float* t, int* prim,
+           float* u, float* v, int* inst, int* slot, unsigned char* occ, cudaStream_t stream) {
   if (m < 1 || n_inst < 1 || n_sc < 1 || n_cl < 1) return (int)cudaErrorInvalidValue;
   if (kAny ? occ == nullptr : (t == nullptr || prim == nullptr || u == nullptr || v == nullptr ||
                                 inst == nullptr || slot == nullptr))
@@ -687,33 +467,20 @@ int launch(const float* rays, long long stride, int m, const float* root, const 
   tb.n_cl = n_cl;
   tb.identity = identity;
   const Out out{t, prim, u, v, inst, slot, occ};
-  const bool staged = variant & 1, warp = variant & 2, table = variant & 4, two = variant & 8;
-  const int threads = (variant & 16) ? 128 : kBlock;
-  tb.compact = (variant & 256) != 0;
-  const size_t smem = staged ? (size_t)32 * n_sc + (size_t)32 * n_cl + (size_t)48 * n_sc : 0;
-  if (smem > (size_t)kStageBytesMax) return (int)cudaErrorInvalidValue;
-  if (warp) {
-    if (table || two) return (int)cudaErrorInvalidValue;
-const bool half = variant & 128;
-    if (half)
-      return staged ? go(k_warp<kAny, true, 16>, m, threads, smem, stream, rays, stride, tb, out)
-                    : go(k_warp<kAny, false, 16>, m, threads, smem, stream, rays, stride, tb, out);
-    return staged ? go(k_warp<kAny, true, 32>, m, threads, smem, stream, rays, stride, tb, out)
-                  : go(k_warp<kAny, false, 32>, m, threads, smem, stream, rays, stride, tb, out);
+  const int grid = (m + kBlock - 1) / kBlock;
+  if (!staged) {
+    k_clustered<kAny, false><<<grid, kBlock, 0, stream>>>(rays, stride, m, tb, out);
+    return (int)cudaGetLastError();
   }
-#define FH_LANE(S, O, T) \
-  if (staged == S && !table == O && two == T) \
-    return go(k_lane<kAny, S, O, T>, m, threads, smem, stream, rays, stride, tb, out);
-  FH_LANE(true, true, true)
-  FH_LANE(true, true, false)
-  FH_LANE(true, false, true)
-  FH_LANE(true, false, false)
-  FH_LANE(false, true, true)
-  FH_LANE(false, true, false)
-  FH_LANE(false, false, true)
-  FH_LANE(false, false, false)
-#undef FH_LANE
-  return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)32 * n_sc + (size_t)32 * n_cl + (size_t)8 * kOrders * n_sc;
+  if (smem > (size_t)kStageBytesMax) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k_clustered<kAny, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k_clustered<kAny, true><<<grid, kBlock, smem, stream>>>(rays, stride, m, tb, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -722,177 +489,12 @@ const bool half = variant & 128;
   const float *rays, long long stride, int m, const float *root, const float *inst_rec,          \
       const float *inst_xf, int n_inst, int identity, const float *sc_rec, const int *sc_order,  \
       const float *sc_key, int n_sc, const float *cl_rec, const float *grp_rec,                  \
-      const float *tri_rec, int n_cl, int variant, float *t, int *prim, float *u, float *v,      \
+      const float *tri_rec, int n_cl, int staged, float *t, int *prim, float *u, float *v,       \
       int *inst, int *slot, unsigned char *occ, cudaStream_t stream
 #define FH_CLUSTERED_PASS                                                                        \
   rays, stride, m, root, inst_rec, inst_xf, n_inst, identity, sc_rec, sc_order, sc_key, n_sc, \
-      cl_rec, grp_rec, tri_rec, n_cl, variant, t, prim, u, v, inst, slot, occ, stream
+      cl_rec, grp_rec, tri_rec, n_cl, staged, t, prim, u, v, inst, slot, occ, stream
 
 extern "C" int fh_clustered_closest(FH_CLUSTERED_ARGS) { return launch<false>(FH_CLUSTERED_PASS); }
 
 extern "C" int fh_clustered_any(FH_CLUSTERED_ARGS) { return launch<true>(FH_CLUSTERED_PASS); }
-
-// DEV: the PR-4 table-order kernel on the reference layout, timed beside
-// the redesign in one call; removed before the PR ends
-namespace v4 {
-
-constexpr int kBlock = 128;
-constexpr int kCluster = 128;
-constexpr int kScGroup = 128;
-constexpr int kTriGroup = 16;
-constexpr int kGroups = kCluster / kTriGroup;
-
-struct Tables {
-  const float* root;       // [6, 8] (column 0 used)
-  const float* inst_aabb;  // [6, I]
-  const float* inst_minv;  // [12, I] world -> object affine rows
-  const int* inst_sc;      // [3, I] supercluster base, count, region base
-  const float* sc_aabb;    // [6, S]
-  const int* sc_mcount;    // [S]
-  const float* cl_meta;    // [8, S * 128] lo.xyz, hi.xyz, count, cluster id
-  const float* blocks;     // [16, K * 128] v0, e1, e2, prim id, group AABBs
-  long long n_slots;       // K * 128
-  int n_inst;
-  int n_sc;
-  int identity;
-};
-
-// pallas_clustered `_slab`: box as lo.xyz at p[0..2 * s], hi.xyz at
-// p[3..5 * s] (s = row stride of the table)
-__device__ __forceinline__ bool slab(const float* __restrict__ p, long long s, const Ray& r,
-                                     float t_best) {
-  return slab_box(__ldg(p), __ldg(p + s), __ldg(p + 2 * s), __ldg(p + 3 * s), __ldg(p + 4 * s),
-                  __ldg(p + 5 * s), r, t_best);
-}
-
-template <bool kAny>
-__global__ void __launch_bounds__(kBlock)
-    k_clustered(const float* __restrict__ rays, long long stride, int m, const Tables tb,
-                float* __restrict__ t_out, int* __restrict__ prim_out, float* __restrict__ u_out,
-                float* __restrict__ v_out, int* __restrict__ inst_out, int* __restrict__ slot_out,
-                unsigned char* __restrict__ occ_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const float tmax = rays[6 * stride + i];
-  float best_t = tmax;
-  int best_slot = -1, best_inst = 0;
-  float bu = 0.0f, bv = 0.0f;
-  bool occluded = false;
-  const long long ns = tb.n_slots;
-  const long long nc = (long long)tb.n_sc * kScGroup;
-  if (tmax > 0.0f) {
-    const Ray w = make_ray(rays[i], rays[stride + i], rays[2 * stride + i], rays[3 * stride + i],
-                           rays[4 * stride + i], rays[5 * stride + i]);
-    best_t = fminf(best_t, root_exit_clamp(tb.root, w));
-    for (int in = 0; in < tb.n_inst; ++in) {
-      if (!slab(tb.inst_aabb + in, tb.n_inst, w, best_t)) continue;
-      Ray r = w;
-      if (!tb.identity) {
-        const float* mi = tb.inst_minv + in;
-        const long long s = tb.n_inst;
-        float mm[12];
-#pragma unroll
-        for (int k = 0; k < 12; ++k) mm[k] = mi[k * s];
-        r.ox = mm[0] * w.ox + mm[1] * w.oy + mm[2] * w.oz + mm[3];
-        r.oy = mm[4] * w.ox + mm[5] * w.oy + mm[6] * w.oz + mm[7];
-        r.oz = mm[8] * w.ox + mm[9] * w.oy + mm[10] * w.oz + mm[11];
-        r.dx = mm[0] * w.dx + mm[1] * w.dy + mm[2] * w.dz;
-        r.dy = mm[4] * w.dx + mm[5] * w.dy + mm[6] * w.dz;
-        r.dz = mm[8] * w.dx + mm[9] * w.dy + mm[10] * w.dz;
-        r.ix = inv_dir(r.dx);
-        r.iy = inv_dir(r.dy);
-        r.iz = inv_dir(r.dz);
-      }
-      const int sc_lo = tb.inst_sc[in], sc_n = tb.inst_sc[tb.n_inst + in];
-      for (int s = sc_lo; s < sc_lo + sc_n; ++s) {
-        if (!slab(tb.sc_aabb + s, tb.n_sc, r, best_t)) continue;
-        const int mcount = __ldg(tb.sc_mcount + s);
-        for (int j = 0; j < mcount; ++j) {
-          const long long col = (long long)s * kScGroup + j;
-          if (!slab(tb.cl_meta + col, nc, r, best_t)) continue;
-          const int cnt = (int)__ldg(tb.cl_meta + 6 * nc + col);
-          const long long base = (long long)__ldg(tb.cl_meta + 7 * nc + col) * kCluster;
-          for (int g = 0; g < kGroups && g * kTriGroup < cnt; ++g) {
-            if (!slab(tb.blocks + 10 * ns + base + g, ns, r, best_t)) continue;
-            const int k_end = min(cnt, (g + 1) * kTriGroup);
-            for (int k = g * kTriGroup; k < k_end; ++k) {
-              const float* q = tb.blocks + base + k;
-              float v0x = __ldg(q), v0y = __ldg(q + ns), v0z = __ldg(q + 2 * ns);
-              float e1x = __ldg(q + 3 * ns), e1y = __ldg(q + 4 * ns), e1z = __ldg(q + 5 * ns);
-              float e2x = __ldg(q + 6 * ns), e2y = __ldg(q + 7 * ns), e2z = __ldg(q + 8 * ns);
-              MtHit h = moller_trumbore(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, v0x, v0y, v0z,
-                                        e1x, e1y, e1z, e2x, e2y, e2z);
-              if (h.valid && h.t < best_t) {
-                if (kAny) {
-                  occluded = true;
-                  goto done;
-                }
-                best_t = h.t;
-                best_slot = (int)(base + k);
-                bu = h.u;
-                bv = h.v;
-                best_inst = in;
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-done:
-  if (kAny) {
-    occ_out[i] = occluded ? 1 : 0;
-  } else {
-    const bool hit = best_slot >= 0;
-    t_out[i] = hit ? best_t : tmax;
-    prim_out[i] = hit ? (int)__ldg(tb.blocks + 9 * ns + best_slot) : -1;
-    u_out[i] = bu;
-    v_out[i] = bv;
-    inst_out[i] = best_inst;
-    slot_out[i] = best_slot;
-  }
-}
-
-template <bool kAny>
-int launch(const float* rays, long long stride, int m, const float* root, const float* inst_aabb,
-           const float* inst_minv, const int* inst_sc, int n_inst, int identity,
-           const float* sc_aabb, const int* sc_mcount, int n_sc, const float* cl_meta,
-           const float* blocks, long long n_slots, float* t, int* prim, float* u, float* v,
-           int* inst, int* slot, unsigned char* occ, cudaStream_t stream) {
-  if (m < 1 || n_inst < 1 || n_sc < 1 || n_slots < kCluster) return (int)cudaErrorInvalidValue;
-  if (kAny ? occ == nullptr : (t == nullptr || prim == nullptr || u == nullptr || v == nullptr ||
-                                inst == nullptr || slot == nullptr))
-    return (int)cudaErrorInvalidValue;
-  Tables tb;
-  tb.root = root;
-  tb.inst_aabb = inst_aabb;
-  tb.inst_minv = inst_minv;
-  tb.inst_sc = inst_sc;
-  tb.sc_aabb = sc_aabb;
-  tb.sc_mcount = sc_mcount;
-  tb.cl_meta = cl_meta;
-  tb.blocks = blocks;
-  tb.n_slots = n_slots;
-  tb.n_inst = n_inst;
-  tb.n_sc = n_sc;
-  tb.identity = identity;
-  k_clustered<kAny><<<(m + kBlock - 1) / kBlock, kBlock, 0, stream>>>(rays, stride, m, tb, t, prim,
-                                                                       u, v, inst, slot, occ);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace v4
-
-#define FH_V4_ARGS                                                                         \
-  const float *rays, long long stride, int m, const float *root, const float *inst_aabb,          \
-      const float *inst_minv, const int *inst_sc, int n_inst, int identity, const float *sc_aabb, \
-      const int *sc_mcount, int n_sc, const float *cl_meta, const float *blocks,                  \
-      long long n_slots, float *t, int *prim, float *u, float *v, int *inst, int *slot,           \
-      unsigned char *occ, cudaStream_t stream
-#define FH_V4_PASS                                                                        \
-  rays, stride, m, root, inst_aabb, inst_minv, inst_sc, n_inst, identity, sc_aabb, sc_mcount, \
-      n_sc, cl_meta, blocks, n_slots, t, prim, u, v, inst, slot, occ, stream
-
-extern "C" int fh_clustered_v4_closest(FH_V4_ARGS) { return v4::launch<false>(FH_V4_PASS); }
-
-extern "C" int fh_clustered_v4_any(FH_V4_ARGS) { return v4::launch<true>(FH_V4_PASS); }

@@ -882,10 +882,10 @@ def _trace_view(dev: Dict, view, any_hit: bool, coherent: bool):
         if resident.routes(c, coherent):
             fn = resident.intersect_any_resident if any_hit else \
                 resident.intersect_closest_resident
-            return fn(c, view)
-        fn = clustered.intersect_any_clustered if any_hit else \
-            clustered.intersect_closest_clustered
-        return fn(c, view, coherent=coherent)
+        else:
+            fn = clustered.intersect_any_clustered if any_hit else \
+                clustered.intersect_closest_clustered
+        return fn(c, view)
     from ..accel.dense import intersect_closest
 
     assert not any_hit, "dense scenes trace every block with closest hit"

@@ -87,7 +87,7 @@ def trace_closest(dev: Dict, o, d, t_max, coherent: bool = True) -> Dict:
     if _use_resident(dev, coherent):
         return resident.intersect_closest_resident(dev["clusters"], rays)
     if "clusters" in dev:
-        hit = clustered.intersect_closest_clustered(dev["clusters"], rays, coherent=coherent)
+        hit = clustered.intersect_closest_clustered(dev["clusters"], rays)
     else:
         hit = dense.intersect_closest(dev["tri_soa"], rays, rays.shape[1])
     return {**hit, "hit": hit["prim"] >= 0}
@@ -101,7 +101,7 @@ def trace_any(dev: Dict, o, d, t_max, coherent: bool = True):
     if _use_resident(dev, coherent):
         return resident.intersect_any_resident(dev["clusters"], rays)
     if "clusters" in dev:
-        return clustered.intersect_any_clustered(dev["clusters"], rays, coherent=coherent)
+        return clustered.intersect_any_clustered(dev["clusters"], rays)
     return dense.intersect_any(dev["tri_soa"], rays, rays.shape[1])
 
 
