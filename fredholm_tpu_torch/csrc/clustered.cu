@@ -54,8 +54,9 @@
 // records cut each link to one or two loads, and the warp issues a ray's
 // 32 tests of a level at once where one lane a ray (the PR-4 design, and
 // the first steps of this one: PERF.md section 7) walked them in turn,
-// its warp stalled on the slowest lane. Closest hit builds for one block
-// an SM (no spills), any-hit for three.
+// its warp stalled on the slowest lane. The launch bounds ask for one
+// resident block an SM (closest hit) and three (any-hit): the register
+// counts that measured fastest without spills (PERF.md).
 #include "common.cuh"
 
 namespace {

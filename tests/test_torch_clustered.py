@@ -11,9 +11,15 @@
   within rtol 1e-5 and the barycentrics u, v (values in [0, 1]) within
   1e-5 absolute (XLA:CPU contracts the interpreted kernel's products into
   FMAs; measured 1.6e-6 on u). A different prim is allowed only at a near-tie (relative
-  t within 1e-6): the reference picks a front-to-back order per 2048-ray
-  tile, the port visits clusters in table order, and on equal t the first
-  visited triangle wins in both.
+  t within 1e-6): the reference keeps the first triangle its per-tile
+  front-to-back order visits, the port the lowest (inst, slot).
+- The kernels' 16-byte records and the uploaded visit orders and keys hold
+  the reference's table entries byte for byte.
+- The twin's walk (front to back in each ray's own visit order, the
+  key-bound exit, the (t, inst, slot) rule) equals a plain table-order walk
+  bit for bit in every visit order, with the exit on and off, and on
+  constructed exact ties; its test counts equal a ray-at-a-time replay of
+  the kernels' one-lane walk.
 - The slot-fetch twin against the reference's fetch (interpret mode),
   bit-equal.
 """
@@ -131,6 +137,50 @@ def test_prepared_tables_byte_equal(both_tables):
     for k in tcl._TABLE_KEYS:
         assert _same(got[k].numpy(), want[k]), k
     assert got["identity"] is True and got["n_instances"] == 1
+
+
+def test_card_records_hold_the_tables(both_tables):
+    """The kernels' 16-byte records and the uploaded visit orders and keys
+    hold the reference's table entries byte for byte."""
+    _, _, _, host, (_, j_tlas, _) = both_tables
+    c = tcl.prepare_clustered(host["tlas"], "cpu")
+    rec = {k: c[k].numpy() for k in tcl._RECORD_KEYS}
+    f32 = np.float32
+
+    def word(a, col, dtype):
+        return np.ascontiguousarray(a[:, col]).view(dtype)
+
+    assert _same(c["sc_order"].numpy(), j_tlas.sc_order)
+    assert _same(c["sc_key"].numpy(), j_tlas.sc_key)
+    assert _same(np.ascontiguousarray(rec["inst_rec"][:, 0:3].T), j_tlas.inst_aabb[0:3])
+    assert _same(np.ascontiguousarray(rec["inst_rec"][:, 4:7].T), j_tlas.inst_aabb[3:6])
+    assert _same(word(rec["inst_rec"], 3, np.int32), j_tlas.inst_sc[0])
+    assert _same(word(rec["inst_rec"], 7, np.int32), j_tlas.inst_sc[1])
+    assert _same(np.ascontiguousarray(rec["inst_xf"].T), j_tlas.inst_minv)
+    sc = rec["sc_rec"]
+    assert _same(np.ascontiguousarray(sc[:, 0:3].T), j_tlas.sc_aabb[0:3])
+    assert _same(np.ascontiguousarray(sc[:, 4:7].T), j_tlas.sc_aabb[3:6])
+    mcount = word(sc, 3, np.int32)
+    assert _same(mcount, j_tlas.sc_mcount)
+    first = word(sc, 7, np.int32)
+    cl = rec["cl_rec"]
+    for s in range(mcount.shape[0]):
+        want = j_tlas.cl_meta[:, s * 128:s * 128 + mcount[s]]
+        got = cl[first[s]:first[s] + mcount[s]]
+        assert _same(np.ascontiguousarray(got[:, 0:3].T), want[0:3])
+        assert _same(np.ascontiguousarray(got[:, 4:7].T), want[3:6])
+        assert _same(got[:, 3], want[6]) and _same(got[:, 7], want[7])
+    assert _same(cl[:, 7], np.arange(cl.shape[0], dtype=f32))  # members in cluster-id order
+    blocks = j_tlas.blocks
+    gcols = (np.arange(cl.shape[0])[:, None] * 128 + np.arange(8)).ravel()
+    grp = rec["grp_rec"]
+    assert _same(np.ascontiguousarray(grp[:, 0:3].T), blocks[10:13, gcols])
+    assert _same(np.ascontiguousarray(grp[:, 4:7].T), blocks[13:16, gcols])
+    tri = rec["tri_rec"]
+    for lo, row in ((0, 0), (4, 3), (8, 6)):
+        assert _same(np.ascontiguousarray(tri[:, lo:lo + 3].T), blocks[row:row + 3])
+    assert _same(tri[:, 3], blocks[9])
+    assert not tri[:, [7, 11]].any() and not grp[:, [3, 7]].any()
 
 
 def test_device_scene_is_clustered():
@@ -472,50 +522,6 @@ def test_exact_tie_takes_the_lowest_inst_and_slot(kind):
         assert int(on_pair.sum()) >= 16 and (want["slot"][on_pair] == min(pair)).all()
     for order in ("ray", *range(6)):
         _bits_equal(tcl.intersect_closest_twin(c, rays, order=order), want, keys)
-
-
-def test_card_records_hold_the_tables(both_tables):
-    """The kernels' 16-byte records and the uploaded visit orders and keys
-    hold the reference's table entries byte for byte."""
-    _, _, _, host, (_, j_tlas, _) = both_tables
-    c = tcl.prepare_clustered(host["tlas"], "cpu")
-    rec = {k: c[k].numpy() for k in tcl._RECORD_KEYS}
-    f32 = np.float32
-
-    def word(a, col, dtype):
-        return np.ascontiguousarray(a[:, col]).view(dtype)
-
-    assert _same(c["sc_order"].numpy(), j_tlas.sc_order)
-    assert _same(c["sc_key"].numpy(), j_tlas.sc_key)
-    assert _same(np.ascontiguousarray(rec["inst_rec"][:, 0:3].T), j_tlas.inst_aabb[0:3])
-    assert _same(np.ascontiguousarray(rec["inst_rec"][:, 4:7].T), j_tlas.inst_aabb[3:6])
-    assert _same(word(rec["inst_rec"], 3, np.int32), j_tlas.inst_sc[0])
-    assert _same(word(rec["inst_rec"], 7, np.int32), j_tlas.inst_sc[1])
-    assert _same(np.ascontiguousarray(rec["inst_xf"].T), j_tlas.inst_minv)
-    sc = rec["sc_rec"]
-    assert _same(np.ascontiguousarray(sc[:, 0:3].T), j_tlas.sc_aabb[0:3])
-    assert _same(np.ascontiguousarray(sc[:, 4:7].T), j_tlas.sc_aabb[3:6])
-    mcount = word(sc, 3, np.int32)
-    assert _same(mcount, j_tlas.sc_mcount)
-    first = word(sc, 7, np.int32)
-    cl = rec["cl_rec"]
-    for s in range(mcount.shape[0]):
-        want = j_tlas.cl_meta[:, s * 128:s * 128 + mcount[s]]
-        got = cl[first[s]:first[s] + mcount[s]]
-        assert _same(np.ascontiguousarray(got[:, 0:3].T), want[0:3])
-        assert _same(np.ascontiguousarray(got[:, 4:7].T), want[3:6])
-        assert _same(got[:, 3], want[6]) and _same(got[:, 7], want[7])
-    assert _same(cl[:, 7], np.arange(cl.shape[0], dtype=f32))  # members in cluster-id order
-    blocks = j_tlas.blocks
-    gcols = (np.arange(cl.shape[0])[:, None] * 128 + np.arange(8)).ravel()
-    grp = rec["grp_rec"]
-    assert _same(np.ascontiguousarray(grp[:, 0:3].T), blocks[10:13, gcols])
-    assert _same(np.ascontiguousarray(grp[:, 4:7].T), blocks[13:16, gcols])
-    tri = rec["tri_rec"]
-    for lo, row in ((0, 0), (4, 3), (8, 6)):
-        assert _same(np.ascontiguousarray(tri[:, lo:lo + 3].T), blocks[row:row + 3])
-    assert _same(tri[:, 3], blocks[9])
-    assert not tri[:, [7, 11]].any() and not grp[:, [3, 7]].any()
 
 
 # ---------------------------------------------------------------------------
