@@ -25,8 +25,10 @@ exits non-zero without the final `ok` line:
    staged in shared memory, and read from global memory: t, u, v, prim,
    inst, slot, the occlusion masks; every slot names its prim) at the
    hosek-sweep shapes (512x288 primaries, one bounce's closest and
-   occlusion blocks) and on a two-instance non-identity TLAS with 2^18
-   rays; the slot fetch bit-equal to its twin; the shading kernels vs
+   occlusion blocks), on a two-instance non-identity TLAS with 2^18
+   rays and on a 135,200-triangle terrain whose staged tables exceed a
+   block's default 48 KB of shared memory; the slot fetch bit-equal to
+   its twin; the shading kernels vs
    their twins on the sweep's planes (Hosek sky, sun block, metal/specular
    lobes, split occlusion, slot planes)
 8. the goldens terrain_cluster, hosek_sun and metal_row through
@@ -386,6 +388,28 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / (reps * calls)
+
+
+def big_terrain_case(n_rays: int, device):
+    """A 135,200-triangle terrain (70 superclusters, 1,494 clusters) whose
+    staged tables take 53,408 B, more than a block's default 48 KB of
+    shared memory, and rays toward it from above, with dead lanes."""
+    import torch
+
+    from fredholm_tpu_torch.scene.device import build_device_scene
+    from fredholm_tpu_torch.scene.procedural import terrain
+
+    c = build_device_scene(terrain(n=260, size=8.0, amp=1.2), device)["clusters"]
+    rng = np.random.default_rng(9)
+    o = np.concatenate([rng.uniform(-4.0, 4.0, (n_rays, 2)),
+                        rng.uniform(2.0, 4.0, (n_rays, 1))], axis=1)[:, [0, 2, 1]]
+    d = np.concatenate([rng.normal(size=(n_rays, 2)) * 0.6,
+                        -np.ones((n_rays, 1))], axis=1)[:, [0, 2, 1]]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n_rays, 1e9, np.float32)
+    tmax[rng.uniform(size=n_rays) < 0.1] = -1.0
+    rays = np.concatenate([o.T, d.T, tmax[None]]).astype(np.float32)
+    return c, torch.as_tensor(np.ascontiguousarray(rays), device=device)
 
 
 def score_golden(tag, name, img, launches, want_shape):
@@ -767,6 +791,16 @@ def main() -> None:
           f"instances hit {sorted(set(ith['inst'][i_hit].tolist()))}")
     if sorted(set(ith["inst"][i_hit].tolist())) != [0, 1]:
         raise AssertionError("two-instance TLAS: not both instances hit")
+    # the staged kernel above a block's default 48 KB of shared memory
+    bc, b_rays = big_terrain_case(1 << 16, dev)
+    b_bytes = clustered.stage_bytes(bc)
+    print(f"[7] terrain 135,200 triangles: {bc['sc_rec'].shape[0]} superclusters, "
+          f"{bc['cl_rec'].shape[0]} clusters, staged tables {b_bytes} B")
+    if not 48 * 1024 < b_bytes <= clustered.STAGE_BYTES_MAX:
+        raise AssertionError(f"the big terrain's staged tables take {b_bytes} B")
+    check_clustered("[7]", "terrain 135,200 triangles", clustered, bc, b_rays)
+    check_clustered("[7]", "terrain 135,200 triangles any-hit", clustered, bc, b_rays,
+                    any_hit=True)
     # bit-equal: no error on any value, no lane differing
     results["clustered_closest"] = 0.0
     results["clustered_any"] = 0.0
