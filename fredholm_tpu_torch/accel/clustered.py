@@ -9,13 +9,15 @@ reference's tables (accel/cluster.py):
     -> 16-triangle group AABB (blocks rows 10-15) -> triangles
 
 with the reference's slab test, its root-box clamp of the initial best t
-and its Moller-Trumbore test. Each lane visits an instance's
+and its Moller-Trumbore test. Each ray visits an instance's
 superclusters front to back in the visit order of its own direction
 class (`sc_order`, `sc_key`: dominant axis and sign of its object-space
 direction) and leaves the instance at the first order position whose key
 bound lies beyond its best t. The bound is computed as the slab test
 computes that box's entry along the axis, so it only skips boxes whose
-slab gate would fail: the exit changes no result.
+slab gate would fail: the exit changes no result. The twin walks each
+ray as one lane would; the kernels walk it with a whole warp and give
+the same bits.
 
 Contract, independent of visit order: closest hit is the valid hit below
 the lane's root-clamped tmax with the smallest (t, inst, slot), compared
