@@ -177,6 +177,8 @@ def lib():
             fn = getattr(handle, name)
             fn.argtypes = [vp, ll, i, vp, vp, i, i, vp, ll, vp, vp, vp, vp, vp, vp]
             fn.restype = i
+        handle.fh_clustered_stage_bytes.argtypes = [i, i]
+        handle.fh_clustered_stage_bytes.restype = ll
         handle.fh_probe_fma.argtypes = [vp, vp, ll, i, ctypes.c_float, ctypes.c_float, vp]
         handle.fh_probe_fma.restype = i
         handle.fh_slot_fetch.argtypes = [vp, i, vp, ll, vp, vp]

@@ -35,7 +35,7 @@ CPU tensors only; for CUDA tensors they launch a kernel or raise.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -64,16 +64,15 @@ _INT_KEYS = ("sc_mcount", "sc_order", "inst_sc")
 
 # rays a block of csrc/clustered.cu (kBlock)
 BLOCK = 256
-# csrc/clustered.cu: the staged variant copies the supercluster records,
-# the visit orders and keys and the member-cluster records into each
-# block's shared memory when they take at most this many bytes
-STAGE_BYTES_MAX = 64 * 1024
 
 
 def stage_bytes(c: Dict) -> int:
-    """Shared memory of the staged kernels for the tables c."""
-    n_sc, n_cl = c["sc_rec"].shape[0], c["cl_rec"].shape[0]
-    return 32 * n_sc + 32 * n_cl + 4 * N_ORDERS * n_sc * 2
+    """The shared memory a block of the staged kernels takes for the
+    tables c (supercluster and member-cluster records, the visit orders
+    and keys), 0 where they do not fit and the kernels read them from
+    global memory. The kernel library decides (csrc/clustered.cu)."""
+    return int(_build.lib().fh_clustered_stage_bytes(c["sc_rec"].shape[0],
+                                                     c["cl_rec"].shape[0]))
 
 
 def _box_records(lo: np.ndarray, w0: np.ndarray, hi: np.ndarray, w1: np.ndarray) -> np.ndarray:
@@ -147,6 +146,7 @@ def prepare_clustered(tlas: TLAS, device) -> Dict:
     tables = {"root_aabb": root, **{k: getattr(tlas, k) for k in _TABLE_KEYS[1:]},
               **card_records(tlas)}
     out = {k: torch.tensor(np.ascontiguousarray(v), device=device) for k, v in tables.items()}
+    _check_tables(out)
     out["identity"] = bool(tlas.inst_identity)
     out["n_instances"] = tlas.n_instances
     if tlas.n_instances == 1 and os.environ.get(RESIDENT_ENV, "0") == "1":
@@ -480,16 +480,15 @@ def intersect_any_twin(c: Dict, rays: torch.Tensor, stats=None, order="ray",
 # ---------------------------------------------------------------------------
 # wrappers
 
-def _check(c: Dict, rays: torch.Tensor) -> None:
-    if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
-        raise ValueError(f"rays must be [7, M] float32, got {tuple(rays.shape)} {rays.dtype}")
-    if rays.shape[1] < 1 or rays.stride(1) != 1:
-        raise ValueError("rays must hold at least one ray, with unit column stride")
+def _check_tables(c: Dict) -> None:
+    """The tables' dtypes, layout, shapes and device, once, when they are
+    prepared (the wrappers then check only the rays)."""
+    dev = c["tri_rec"].device
     for k in _TABLE_KEYS + _RECORD_KEYS:
         t = c[k]
         want = torch.int32 if k in _INT_KEYS else torch.float32
-        if t.dtype != want or not t.is_contiguous() or t.device != rays.device:
-            raise ValueError(f"table {k} must be contiguous {want} on {rays.device}")
+        if t.dtype != want or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"table {k} must be contiguous {want} on {dev}")
     if c["blocks"].shape[0] != 16 or c["cl_meta"].shape[0] != 8:
         raise ValueError("blocks must be [16, K*128] and cl_meta [8, S*128]")
     n_sc, n_cl = c["sc_rec"].shape[0], c["cl_rec"].shape[0]
@@ -502,14 +501,13 @@ def _check(c: Dict, rays: torch.Tensor) -> None:
             raise ValueError(f"table {k} must be {shape}, got {tuple(c[k].shape)}")
 
 
-def _staged(c: Dict, staged: Optional[bool]) -> bool:
-    """Whether a launch takes the staged kernel: where the top levels fit
-    in shared memory, or as asked."""
-    fits = stage_bytes(c) <= STAGE_BYTES_MAX
-    if staged and not fits:
-        raise ValueError(f"the staged kernel takes at most {STAGE_BYTES_MAX} B of tables, "
-                         f"these need {stage_bytes(c)}")
-    return fits if staged is None else staged
+def _check(c: Dict, rays: torch.Tensor) -> None:
+    if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
+        raise ValueError(f"rays must be [7, M] float32, got {tuple(rays.shape)} {rays.dtype}")
+    if rays.shape[1] < 1 or rays.stride(1) != 1:
+        raise ValueError("rays must hold at least one ray, with unit column stride")
+    if c["tri_rec"].device != rays.device:
+        raise ValueError(f"the tables lie on {c['tri_rec'].device}, the rays on {rays.device}")
 
 
 def _launch(fn_name: str, count_name: str, c: Dict, rays, outs, staged: bool) -> None:
@@ -530,13 +528,12 @@ def _launch(fn_name: str, count_name: str, c: Dict, rays, outs, staged: bool) ->
     _build.LAUNCHES[count_name] += 1
 
 
-def intersect_closest_clustered(c: Dict, rays: torch.Tensor,
-                                staged: Optional[bool] = None) -> Dict:
+def intersect_closest_clustered(c: Dict, rays: torch.Tensor, staged: bool = True) -> Dict:
     """Closest hit of every ray of the [7, M] view `rays` through the
     clustered tables `c` (prepare_clustered). Returns {t f32, prim i32,
-    u f32, v f32, inst i32, slot i32}, each [M]. staged: the kernel that
-    stages the top levels in shared memory (default: where they fit;
-    False reads them from global memory)."""
+    u f32, v f32, inst i32, slot i32}, each [M]. staged: stage the top
+    levels in shared memory where they fit (`stage_bytes`); False reads
+    them from global memory."""
     _check(c, rays)
     if rays.device.type == "cpu":
         return intersect_closest_twin(c, rays)
@@ -547,12 +544,11 @@ def intersect_closest_clustered(c: Dict, rays: torch.Tensor,
     outs = {k: torch.empty(m, dtype=dt, device=rays.device)
             for k, dt in (("t", f32), ("prim", i32), ("u", f32), ("v", f32),
                           ("inst", i32), ("slot", i32))}
-    _launch("fh_clustered_closest", "clustered_closest", c, rays, outs, _staged(c, staged))
+    _launch("fh_clustered_closest", "clustered_closest", c, rays, outs, staged)
     return outs
 
 
-def intersect_any_clustered(c: Dict, rays: torch.Tensor,
-                            staged: Optional[bool] = None) -> torch.Tensor:
+def intersect_any_clustered(c: Dict, rays: torch.Tensor, staged: bool = True) -> torch.Tensor:
     """Occlusion of every ray of the [7, M] view `rays`: bool [M]; staged
     as for the closest hit."""
     _check(c, rays)
@@ -561,5 +557,5 @@ def intersect_any_clustered(c: Dict, rays: torch.Tensor,
     if rays.device.type != "cuda":
         raise NotImplementedError(f"no clustered kernel for device {rays.device}")
     occ = torch.empty(rays.shape[1], dtype=torch.bool, device=rays.device)
-    _launch("fh_clustered_any", "clustered_any", c, rays, {"occluded": occ}, _staged(c, staged))
+    _launch("fh_clustered_any", "clustered_any", c, rays, {"occluded": occ}, staged)
     return occ

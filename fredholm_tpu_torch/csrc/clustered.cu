@@ -43,8 +43,10 @@
 // (the twin's walk), bit for bit. Any-hit leaves at the first hit
 // (__any_sync). With kStaged each block first copies the supercluster
 // records, the visit orders and keys and the member-cluster records into
-// shared memory (cp.async) when they take at most kStageBytesMax; above
-// that the same records are read from global memory.
+// shared memory (cp.async) when they fit in a block's default 48 KB
+// (stage_bytes); above that the same records are read from global memory.
+// Staging measured 1.7% (closest) and 3.8% (any-hit) off the device time
+// at the hosek sweep's bounce, every one of 20 pairs (PERF.md).
 //
 // Bounds on the H100 at the hosek sweep's shapes that chip_smoke.py times
 // (PERF.md has the numbers): the closest hit by bytes, the any-hit by
@@ -66,8 +68,8 @@ constexpr int kCluster = 128;
 constexpr int kTriGroup = 16;
 constexpr int kGroups = kCluster / kTriGroup;
 constexpr int kOrders = 6;
-// accel/clustered.py STAGE_BYTES_MAX
-constexpr int kStageBytesMax = 64 * 1024;
+// a block's shared memory without the opt-in attribute
+constexpr size_t kStageBytesMax = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Tables {
@@ -440,6 +442,13 @@ __global__ void __launch_bounds__(kBlock, kAny ? 3 : 1)
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
+// the staged kernels' shared memory (stage_top's layout), 0 where it
+// exceeds kStageBytesMax and the kernels read the tables from global memory
+size_t stage_bytes(int n_sc, int n_cl) {
+  const size_t b = (size_t)32 * n_sc + (size_t)32 * n_cl + (size_t)8 * kOrders * n_sc;
+  return b <= kStageBytesMax ? b : 0;
+}
+
 template <bool kAny>
 int launch(const float* rays, long long stride, int m, const float* root, const float* inst_rec,
            const float* inst_xf, int n_inst, int identity, const float* sc_rec,
@@ -469,18 +478,12 @@ int launch(const float* rays, long long stride, int m, const float* root, const 
   tb.identity = identity;
   const Out out{t, prim, u, v, inst, slot, occ};
   const int grid = (m + kBlock - 1) / kBlock;
-  if (!staged) {
+  const size_t smem = staged ? stage_bytes(n_sc, n_cl) : 0;
+  if (smem) {
+    k_clustered<kAny, true><<<grid, kBlock, smem, stream>>>(rays, stride, m, tb, out);
+  } else {
     k_clustered<kAny, false><<<grid, kBlock, 0, stream>>>(rays, stride, m, tb, out);
-    return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)32 * n_sc + (size_t)32 * n_cl + (size_t)8 * kOrders * n_sc;
-  if (smem > (size_t)kStageBytesMax) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k_clustered<kAny, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  k_clustered<kAny, true><<<grid, kBlock, smem, stream>>>(rays, stride, m, tb, out);
   return (int)cudaGetLastError();
 }
 
@@ -499,3 +502,7 @@ int launch(const float* rays, long long stride, int m, const float* root, const 
 extern "C" int fh_clustered_closest(FH_CLUSTERED_ARGS) { return launch<false>(FH_CLUSTERED_PASS); }
 
 extern "C" int fh_clustered_any(FH_CLUSTERED_ARGS) { return launch<true>(FH_CLUSTERED_PASS); }
+
+extern "C" long long fh_clustered_stage_bytes(int n_sc, int n_cl) {
+  return (long long)stage_bytes(n_sc, n_cl);
+}
