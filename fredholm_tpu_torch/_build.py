@@ -48,10 +48,10 @@ def _nvcc() -> str:
     return path
 
 
-def _source_hash() -> str:
+def _source_hash(csrc_dir: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in HEADERS + SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode())
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -79,20 +79,22 @@ def _parse_ptxas(log: str) -> dict:
     return out
 
 
-def build() -> str:
-    """Compile the kernels if no library for these sources exists; returns
-    the library path. Raises on any compiler error."""
+def build(csrc_dir: str = CSRC_DIR, info: dict = BUILD_INFO) -> str:
+    """Compile the kernels of csrc_dir (the package's own by default; a
+    tool may build another tree's to time it beside these) if no library
+    for these sources exists; returns the library path and records the
+    build in `info`. Raises on any compiler error."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"libfh_kernels_{_source_hash()}.so")
+    lib_path = os.path.join(BUILD_DIR, f"libfh_kernels_{_source_hash(csrc_dir)}.so")
     if os.path.exists(lib_path):
-        BUILD_INFO.setdefault("seconds", 0.0)
+        info.setdefault("seconds", 0.0)
         return lib_path
     nvcc = _nvcc()
     tag = f"{os.getpid()}"
     objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
     t0 = time.perf_counter()
     procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC_DIR, s)],
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(csrc_dir, s)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for s, o in zip(SOURCES, objs)
     ]
@@ -110,7 +112,7 @@ def build() -> str:
         os.remove(o)
     os.replace(tmp, lib_path)
     log = "".join(logs)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=_parse_ptxas(log), log=log)
+    info.update(seconds=time.perf_counter() - t0, ptxas=_parse_ptxas(log), log=log)
     return lib_path
 
 

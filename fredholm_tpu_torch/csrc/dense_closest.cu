@@ -4,61 +4,193 @@
 // `_closest_call`; entry `intersect_closest_pallas_c`). Plain twin:
 // fredholm_tpu_torch/accel/dense.py `intersect_closest_twin`.
 //
-// One thread per ray; each 256-thread block stages the triangle SoA
-// (9 x F floats, 36 KB at the 1024-face limit) into shared memory once,
-// then every thread sweeps all F triangles with Moller-Trumbore, reading
-// each triangle as a broadcast (all lanes of a warp read the same word).
-// Bounds on the H100: compute, about 30 flops per ray-triangle test, so
-// N*F*30 flops per call (1M rays x 36 triangles is ~1 GFLOP, a few tens of
-// microseconds); device memory traffic is the ray buffer once in (28 B a
-// ray) and the hit planes once out (16 B a ray). Dead lanes (tmax <= 0)
-// skip the sweep but still take part in the block's staging barrier.
+// Contract: Moller-Trumbore with |det| > 1e-12, u, v >= 0, u + v <= 1 and
+// t > 0; a strict t < best_t from tmax, so on an equal t the lowest prim
+// wins; a miss or a dead lane (tmax <= 0) gives prim -1, t = tmax, u = v = 0.
+//
+// Bound on the H100 at the main path's shapes (metric 1's bounce buffer,
+// [7, 1,048,576] rays, 36 triangles): bytes, ~0.014 ms. A dead ray reads
+// its tmax (4 B), a live one 28 B, and every ray writes 16 B. The operation
+// term, ~40 float operations a live ray-triangle pair at the card's 67
+// TFLOP/s, is below it; the build is -fmad=false, so every product and sum
+// issues on its own and the rate the kernel can reach is half that.
+//
+// The design, for what held the first one (one thread a ray, a static 36 KB
+// SoA table, every pair through the whole test) 6x above its bound:
+// - Live rays are compacted inside each block (a warp ballot, prefix counts
+//   over the block's warps, a shared list of live lanes), so the warps that
+//   sweep hold live rays only; dead lanes write their outputs at once, and a
+//   block with no live ray stages nothing.
+// - Each pair is rejected as soon as the full test provably rejects it:
+//   |det| <= 1e-12 (NaN included); then u's and v's numerators against
+//   det's sign, where the product with 1/det cannot round to a signed zero
+//   (`surely_negative`); then t's numerator (t <= 0, a zero included). Pairs
+//   that pass take the full test, operation for operation as the twin, so
+//   the results are bit-equal to it and to the first design.
+// - Triangles are 16-byte records (v0, e1, e2, each padded to four floats)
+//   in dynamic shared memory sized to F (48 B a triangle: 1.7 KB for the
+//   Cornell box, 48 KB at the 1024-face limit, no opt-in), read as three
+//   broadcast 16-byte loads. The live list shares that buffer before the
+//   records are staged.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
+// the live list and the warps' counts, before the records take the buffer
+constexpr int kListBytes = (kBlock + kWarps) * 4;
 
+__host__ __device__ constexpr int smem_bytes(int f) {
+  return 48 * f > kListBytes ? 48 * f : kListBytes;
+}
+
+// x * RN(1 / det) is certainly negative or NaN, so `>= 0` fails, for a
+// finite det with |det| > 1e-12: x has the other sign (or is NaN), and the
+// product cannot underflow to -0. For |det| <= 1, |RN(1/det)| >= 1; for a
+// finite larger det, RN(1/det) >= 2^-128, so |x| >= 2^-21 keeps the product
+// at or above 2^-149, the least denormal.
+__device__ __forceinline__ bool surely_negative(float x, float det) {
+  const float adet = fabsf(det);
+  const bool finite_det = adet <= 3.4028234663852886e38f;
+  const bool opposite = (x < 0.0f) != (det < 0.0f) && x != 0.0f;
+  return finite_det && (opposite || x != x) && (adet <= 1.0f || fabsf(x) >= 0x1p-21f);
+}
+
+// kCompact: sweep with the block's live rays compacted. kReject: 0 every
+// pair through the whole test; 1 each lane leaves a pair as soon as the
+// full test provably rejects it; 2 a warp leaves a pair when every lane's
+// full test provably rejects it (lanes that pass on take the whole test)
+template <bool kCompact, int kReject>
 __global__ void __launch_bounds__(kBlock)
     k_dense_closest(const float* __restrict__ rays, long long stride, int m,
                     const float* __restrict__ tri, int f, float* __restrict__ t_out,
                     int* __restrict__ prim_out, float* __restrict__ u_out,
                     float* __restrict__ v_out) {
-  __shared__ float s_tri[9 * kDenseMaxTris];
-  stage_tri_soa(s_tri, tri, f);
+  extern __shared__ float4 s_buf[];
+  int* s_list = reinterpret_cast<int*>(s_buf);
+  int* s_count = s_list + kBlock;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long base = (long long)blockIdx.x * kBlock;
 
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  float tmax = rays[6 * stride + i];
-  float best_t = tmax;
+  // ---- compact the block's live lanes
+  const long long i = base + threadIdx.x;
+  const float tmax = i < m ? rays[6 * stride + i] : -1.0f;
+  const bool live = tmax > 0.0f;
+  if (i < m && !live) {
+    t_out[i] = tmax;
+    prim_out[i] = -1;
+    u_out[i] = 0.0f;
+    v_out[i] = 0.0f;
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) s_count[warp] = __popc(ballot);
+  __syncthreads();
+  int offset = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = s_count[w];
+    offset += w < warp ? c : 0;
+    total += c;
+  }
+  if (kCompact && live) s_list[offset + __popc(ballot & ((1u << lane) - 1u))] = threadIdx.x;
+  __syncthreads();
+  if (total == 0) return;  // the whole block: no live ray, nothing to stage
+  const int mine = kCompact ? (threadIdx.x < total ? s_list[threadIdx.x] : -1)
+                            : (live ? (int)threadIdx.x : -1);
+  __syncthreads();  // the list is read; the records take the buffer
+
+  // ---- stage the triangle records
+  for (int k = threadIdx.x; k < f; k += kBlock) {
+    s_buf[3 * k] = make_float4(tri[k], tri[f + k], tri[2 * f + k], 0.0f);
+    s_buf[3 * k + 1] = make_float4(tri[3 * f + k], tri[4 * f + k], tri[5 * f + k], 0.0f);
+    s_buf[3 * k + 2] = make_float4(tri[6 * f + k], tri[7 * f + k], tri[8 * f + k], 0.0f);
+  }
+  __syncthreads();
+  if (mine < 0) return;
+
+  // ---- sweep: the warps hold live rays only
+  const long long j = base + mine;
+  const float ox = rays[j], oy = rays[stride + j], oz = rays[2 * stride + j];
+  const float dx = rays[3 * stride + j], dy = rays[4 * stride + j], dz = rays[5 * stride + j];
+  float best_t = rays[6 * stride + j];
   int best = -1;
   float bu = 0.0f, bv = 0.0f;
-  if (tmax > 0.0f) {
-    float ox = rays[i], oy = rays[stride + i], oz = rays[2 * stride + i];
-    float dx = rays[3 * stride + i], dy = rays[4 * stride + i], dz = rays[5 * stride + i];
-    for (int s = 0; s < f; ++s) {
-      MtHit h = mt_staged(s_tri, s, ox, oy, oz, dx, dy, dz);
-      // strict <: on equal t the lowest prim index wins
-      if (h.valid && h.t < best_t) {
-        best_t = h.t;
-        best = s;
-        bu = h.u;
-        bv = h.v;
-      }
+  const unsigned warp_mask = __activemask();  // every lane here runs all f pairs
+#pragma unroll 2
+  for (int s = 0; s < f; ++s) {
+    const float4 a = s_buf[3 * s];      // v0
+    const float4 e1 = s_buf[3 * s + 1];
+    const float4 e2 = s_buf[3 * s + 2];
+    // the twin's evaluation order (common.cuh moller_trumbore)
+    const float px = dy * e2.z - dz * e2.y;
+    const float py = dz * e2.x - dx * e2.z;
+    const float pz = dx * e2.y - dy * e2.x;
+    const float det = e1.x * px + e1.y * py + e1.z * pz;
+    const bool ok_det = fabsf(det) > 1e-12f;
+    if (kReject == 1 && !ok_det) continue;
+    const float tx = ox - a.x, ty = oy - a.y, tz = oz - a.z;
+    const float un = tx * px + ty * py + tz * pz;
+    bool pass = ok_det && !surely_negative(un, det);
+    if (kReject == 1 && !pass) continue;
+    if (kReject == 2 && !__any_sync(warp_mask, pass)) continue;
+    const float qx = ty * e1.z - tz * e1.y;
+    const float qy = tz * e1.x - tx * e1.z;
+    const float qz = tx * e1.y - ty * e1.x;
+    const float vn = dx * qx + dy * qy + dz * qz;
+    const float tn = e2.x * qx + e2.y * qy + e2.z * qz;
+    // t = tn * RN(1/det) > 0 needs tn and det of one sign, neither zero
+    pass = pass && !surely_negative(vn, det) &&
+           ((tn > 0.0f && det > 0.0f) || (tn < 0.0f && det < 0.0f));
+    if (kReject == 1 && !pass) continue;
+    if (kReject == 2 && !__any_sync(warp_mask, pass)) continue;
+    const float inv_det = ok_det ? 1.0f / det : 0.0f;
+    const float u = un * inv_det;
+    const float v = vn * inv_det;
+    const float t = tn * inv_det;
+    // strict <: on equal t the lowest prim index wins
+    if (ok_det && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 0.0f) && t < best_t) {
+      best_t = t;
+      best = s;
+      bu = u;
+      bv = v;
     }
   }
-  t_out[i] = best_t;  // tmax on a miss or a dead lane
-  prim_out[i] = best;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  t_out[j] = best_t;  // tmax on a miss
+  prim_out[j] = best;
+  u_out[j] = bu;
+  v_out[j] = bv;
+}
+
+template <bool kCompact, int kReject>
+int launch(const float* rays, long long stride, int m, const float* tri, int f, float* t,
+           int* prim, float* u, float* v, cudaStream_t stream) {
+  if (f < 1 || f > kDenseMaxTris || m < 1) return (int)cudaErrorInvalidValue;
+  k_dense_closest<kCompact, kReject><<<(m + kBlock - 1) / kBlock, kBlock, smem_bytes(f), stream>>>(
+      rays, stride, m, tri, f, t, prim, u, v);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fh_dense_closest(const float* rays, long long stride, int m, const float* tri, int f,
                                 float* t, int* prim, float* u, float* v, cudaStream_t stream) {
-  if (f < 1 || f > kDenseMaxTris || m < 1) return (int)cudaErrorInvalidValue;
-  k_dense_closest<<<(m + kBlock - 1) / kBlock, kBlock, 0, stream>>>(rays, stride, m, tri, f, t, prim,
-                                                                   u, v);
-  return (int)cudaGetLastError();
+  return launch<true, 1>(rays, stride, m, tri, f, t, prim, u, v, stream);
+}
+
+// The design's steps, for tools/shade_steps.py: 1 the records alone, 2 with
+// the exact reject a lane, 3 with the compaction, 4 both, 5 the compaction
+// and the exact reject a warp
+extern "C" int fh_dense_closest_step(const float* rays, long long stride, int m, const float* tri,
+                                     int f, float* t, int* prim, float* u, float* v, int step,
+                                     cudaStream_t stream) {
+  switch (step) {
+    case 1: return launch<false, 0>(rays, stride, m, tri, f, t, prim, u, v, stream);
+    case 2: return launch<false, 1>(rays, stride, m, tri, f, t, prim, u, v, stream);
+    case 3: return launch<true, 0>(rays, stride, m, tri, f, t, prim, u, v, stream);
+    case 4: return launch<true, 1>(rays, stride, m, tri, f, t, prim, u, v, stream);
+    case 5: return launch<true, 2>(rays, stride, m, tri, f, t, prim, u, v, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -165,17 +165,11 @@ def raygen(cfg: pf.FusedConfig, sv, usv, n_spp):
     return state, sample_idx, rays
 
 
-def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
-         sample_idx, state, rays, pending, tr: pf.Traced):
-    """Resolve bounce d-1, shade bounce d, emit bounce d's rays and RR.
-
-    rays/tr: the previous ray buffer (one block at d = 0) and its traces.
-    Returns (state, rays [7, B*N], pending [14, N], aov [12, N] at d = 0
-    else None)."""
-    if sv.device.type == "cpu":
-        _build.LAUNCHES["mega_twin"] += 1
-        return pf.mega_twin(cfg, d, sv, usv, tables, n_spp, sample_idx,
-                            state, rays, pending, tr)
+def mega_launch(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
+                sample_idx, state, rays, pending, tr: pf.Traced):
+    """The checked launch arguments of the mega kernel on CUDA tensors and
+    the outputs it writes: (ShadeArgs, (state, rays, pending, aov or
+    None)). `mega` launches it; tools/shade_steps.py times its steps."""
     n = cfg.width * cfg.height
     dev = sv.device
     nb_in = 1 if d == 0 else len(cfg.blocks)
@@ -197,8 +191,24 @@ def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     a = _args(cfg, sv, usv, n_spp, state_out=state_out.data_ptr(),
               rays_out=rays_out.data_ptr(), pending_out=pending_out.data_ptr(),
               aov_out=aov.data_ptr() if aov is not None else None, **ptrs)
-    _launch("mega", _build.lib().fh_mega, a, dev)
-    return state_out, rays_out, pending_out, aov
+    return a, (state_out, rays_out, pending_out, aov)
+
+
+def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
+         sample_idx, state, rays, pending, tr: pf.Traced):
+    """Resolve bounce d-1, shade bounce d, emit bounce d's rays and RR.
+
+    rays/tr: the previous ray buffer (one block at d = 0) and its traces.
+    Returns (state, rays [7, B*N], pending [14, N], aov [12, N] at d = 0
+    else None)."""
+    if sv.device.type == "cpu":
+        _build.LAUNCHES["mega_twin"] += 1
+        return pf.mega_twin(cfg, d, sv, usv, tables, n_spp, sample_idx,
+                            state, rays, pending, tr)
+    a, out = mega_launch(cfg, d, sv, usv, tables, n_spp, sample_idx, state, rays,
+                         pending, tr)
+    _launch("mega", _build.lib().fh_mega, a, sv.device)
+    return out
 
 
 def final(cfg: pf.FusedConfig, sv, tables: Dict, state, rays, pending, tr: pf.Traced):

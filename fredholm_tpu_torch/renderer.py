@@ -114,6 +114,9 @@ class Renderer:
         self._dev = build_device_scene(scene, self.device)
         self._lobes = _scene_lobes(scene)
         self.scene = scene
+        # a loaded scene's camera (renderer.py:314-318)
+        if getattr(scene, "has_camera_transform", False) and scene.camera_transform is not None:
+            self.camera.set_transform(scene.camera_transform)
         self.init_render_states()
 
     def set_directional_light(self, le, direction, angle: float = 0.0):
