@@ -8,15 +8,21 @@ exits non-zero without the final `ok` line:
 
 0. the card's name and power limit (nvidia-smi); no CUDA device -> error
 1. build the CUDA kernels from csrc/ (nvcc), print build time and spills
-2. dense closest-hit kernel vs its twin: Cornell with 4 x 512^2 rays from
-   a real raygen + first bounce, and a 1024-triangle soup with 2^20 rays
-   (dead lanes and rays at shared edges included)
+2. dense closest-hit kernel (B1) vs its twin, bit-equal (t, u, v, prim):
+   Cornell with 4 x 512^2 rays from a real raygen + first bounce, a
+   1024-triangle soup with 2^20 rays (dead lanes and rays at shared edges
+   included), the bounce buffer with every lane dead and with one live
+   lane a block, and coplanar copies of one triangle (an exact equal-t tie)
 3. shading kernels vs their twins on the same inputs: raygen, mega at
-   d = 0 and d = 1, final resolve
+   each d = 0..4 of metric 1, final resolve
 4. the Cornell golden (64^2, 32 spp, depth 4) rendered through
    Renderer(device="cuda") and scored against tests/golden/cornell.npz
 5. metric 1: Cornell 512^2, 16 spp, depth 5 after 2 warm-up spp, with the
-   launch counts of that run, and per-kernel times vs the plain twins
+   launch counts of that run, the device's busy share and time by kernel
+   (torch.profiler), and per-kernel times vs the plain twins; then
+   B1 and mega at each d = 0..4 of metric 1 (CUDA events and CUDA-graph
+   replays, each buffer's live share, both terms of each bound) beside
+   PR 5's designs' times
 6. the kernel table, the card line, then {"ok": true, "device": ...}
    (printed last, after phases 7-9)
 7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
@@ -90,7 +96,6 @@ MASK_AGREE_MIN = 0.999
 VALUE_RTOL = 1e-4
 VALUE_ATOL = 1e-4
 VALUE_AGREE_MIN = 0.999
-TRACE_REL_TOL = 1e-5
 TIE_REL = 1e-6
 
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
@@ -104,6 +109,17 @@ TRI_OPS = 40
 KEY_OPS = 3
 # B4 and B5 at metric 2's d = 1 blocks in the PR-4 design (PR 4 run 5)
 PR4_MS = {"B4": 0.3564, "B5": 0.3281}
+# B1 and mega at metric 1's d = 0..4 (and mega at metric 2's d = 1) in PR
+# 5's designs, (CUDA graph, CUDA events) ms: tools/shade_steps.py at commit
+# 4f5d229, 3 pairs in turns with the redesign on "NVIDIA H100 80GB HBM3,
+# 700.00 W"
+PR5_MS = {
+    "B1": [(0.0293, 0.0319), (0.0796, 0.0832), (0.0834, 0.0863), (0.0824, 0.0852),
+           (0.0797, 0.0838)],
+    "mega": [(0.0679, 0.0717), (0.0896, 0.0877), (0.0839, 0.0874), (0.0834, 0.0873),
+             (0.0812, 0.0852)],
+    "mega metric 2 d=1": (0.0885, 0.0915),
+}
 # float operations a lane of each shading stage takes (counted from the
 # bodies, hashing included; all three stages are bound by their bytes)
 STAGE_OPS = {"raygen": 300, "mega": 1500, "final_resolve": 150}
@@ -155,33 +171,25 @@ def bound(n_bytes: float, n_ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def compare_trace(name, kern, twin, m, tag="[2]"):
-    """Hit masks by agreement; prim equal except near-ties; t/u/v close."""
+def check_dense(name, dense, tri, rays, tag="[2]"):
+    """B1 against its twin on the same rays, bit for bit: t, u, v and
+    prim. Returns the largest absolute difference (measured)."""
     import torch
 
-    hk, ht = kern["prim"] >= 0, twin["prim"] >= 0
-    agree = (hk == ht).float().mean().item()
-    both = hk & ht
-    same = both & (kern["prim"] == twin["prim"])
-    diff = both & ~same
-    tie = diff & ((kern["t"] - twin["t"]).abs() <= TIE_REL * twin["t"].abs().clamp(min=1.0))
-    errs = {}
-    for k in ("t", "u", "v"):
-        e = (kern[k] - twin[k]).abs()
-        e = torch.where(same | (~hk & ~ht), e, torch.zeros_like(e))
-        errs[k] = e.max().item()
-    rel_t = ((kern["t"] - twin["t"]).abs() / twin["t"].abs().clamp(min=1.0))
-    rel_t = torch.where(same | (~hk & ~ht), rel_t, torch.zeros_like(rel_t)).max().item()
-    n_bad_prim = int((diff & ~tie).sum().item())
-    print(f"{tag} {name}: rays={m} hit-mask agreement={agree:.7f} "
-          f"hits={int(both.sum())} prim-diff={int(diff.sum())} (near-tie "
-          f"{int(tie.sum())}) max|dt|={errs['t']:.3g} rel_t={rel_t:.3g} "
-          f"max|du|={errs['u']:.3g} max|dv|={errs['v']:.3g}")
-    if agree < 1.0 - 1e-4 or n_bad_prim > max(1, m // 100000):
-        raise AssertionError(f"{name}: trace kernel disagrees with its twin")
-    if rel_t > TRACE_REL_TOL or max(errs["u"], errs["v"]) > TRACE_REL_TOL:
-        raise AssertionError(f"{name}: trace kernel t/u/v off by more than {TRACE_REL_TOL}")
-    return max(errs.values())
+    m = rays.shape[1]
+    kern = dense.intersect_closest(tri, rays, m)
+    twin = dense.intersect_closest_twin(tri, rays, m)
+    torch.cuda.synchronize()
+    diff = {k: int((kern[k].view(torch.int32) != twin[k].view(torch.int32)).sum())
+            for k in ("t", "u", "v", "prim")}
+    err = max((kern[k].double() - twin[k].double()).abs().max().item()
+              for k in ("t", "u", "v", "prim"))
+    print(f"{tag} {name}: rays={m} live={int((rays[6] > 0).sum())} "
+          f"hits={int((kern['prim'] >= 0).sum())} lanes differing from the twin "
+          f"{json.dumps(diff)}")
+    if any(diff.values()):
+        raise AssertionError(f"{name}: B1 differs from its twin")
+    return err
 
 
 def compare_planes(name, kern, twin, mask_rows=(), tag="[3]"):
@@ -213,10 +221,10 @@ def compare_planes(name, kern, twin, mask_rows=(), tag="[3]"):
     return err
 
 
-def compare_stages(tag, cfg, pf, kernels, sv, usv, dev, n_spp, trace_fn):
-    """raygen, mega at d = 0 and d = 1 and final, kernel vs twin on the
-    same inputs; trace_fn(rays, d) gives a stage's Traced (kernel traces).
-    Returns {kernel name: max error}."""
+def compare_stages(tag, cfg, pf, kernels, sv, usv, dev, n_spp, trace_fn, depths=(0, 1)):
+    """raygen, mega at each d of depths (0, 1, ...) and final, kernel vs
+    twin on the same inputs; trace_fn(rays, d) gives a stage's Traced
+    (kernel traces). Returns {kernel name: max error}."""
     n = cfg.width * cfg.height
     k_st, k_si, k_r = kernels.raygen(cfg, sv, usv, n_spp)
     t_st, t_si, t_r = pf.raygen_twin(cfg, sv, usv, n_spp)
@@ -225,7 +233,7 @@ def compare_stages(tag, cfg, pf, kernels, sv, usv, dev, n_spp, trace_fn):
                          compare_planes("raygen rays", k_r, t_r, [6], tag))}
     e = []
     st_in, r_in, pend = k_st, k_r, None
-    for d in (0, 1):
+    for d in depths:
         tr = trace_fn(r_in, d)
         ko = kernels.mega(cfg, d, sv, usv, dev, n_spp, k_si, st_in, r_in, pend, tr)
         to = pf.mega_twin(cfg, d, sv, usv, dev, n_spp, k_si, st_in, r_in, pend, tr)
@@ -236,6 +244,7 @@ def compare_stages(tag, cfg, pf, kernels, sv, usv, dev, n_spp, trace_fn):
         e.append(compare_planes(f"mega d={d} pending", ko[2], to[2], tag=tag))
         if d == 0:
             e.append(compare_planes("mega d=0 aov", ko[3], to[3], tag=tag))
+        print(f"{tag} mega d={d}: max|err| {max(e[-len(cfg.blocks) - 2 - (d == 0):]):.3g}")
         st_in, r_in, pend = ko[0], ko[1], ko[2]
     res["mega"] = max(e)
     tr = trace_fn(r_in, -1)
@@ -615,14 +624,36 @@ def main() -> None:
     _, rays1, _, _ = kernels.mega(cfg, 0, sv, usv, scene_dev, n_spp, sidx, state0, rays0,
                                   None, pf.Traced(hits0))
     m1 = rays1.shape[1]
-    kh = dense.intersect_closest(tri, rays1, m1)
-    th = dense.intersect_closest_twin(tri, rays1, m1)
-    torch.cuda.synchronize()
-    err_c = compare_trace("cornell 4x512^2", kh, th, m1)
+    err = [check_dense("cornell 4x512^2", dense, tri, rays1)]
     s_tri, s_rays = soup(1024, 1 << 20, 7, dev)
-    err_s = compare_trace("soup 1024 tris", dense.intersect_closest(s_tri, s_rays, 1 << 20),
-                          dense.intersect_closest_twin(s_tri, s_rays, 1 << 20), 1 << 20)
-    results["dense_closest"] = max(err_c, err_s)
+    err.append(check_dense("soup 1024 tris", dense, s_tri, s_rays))
+    dead2 = rays1.clone()
+    dead2[6] = -1.0
+    err.append(check_dense("cornell bounce, every lane dead", dense, tri, dead2))
+    # one live lane a block of the kernel (256 lanes): the block's first
+    lone2 = dead2.clone()
+    first = torch.arange(0, m1, 256, device=dev)
+    lone2[6, first] = 1e9
+    err.append(check_dense("cornell bounce, one live lane a block", dense, tri, lone2))
+    # coplanar copies of one triangle (1, 2, 4 and 5 alike): every ray that
+    # hits has an exact equal-t tie, which the lowest prim wins
+    v = torch.tensor([[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]], device=dev)
+    tris = torch.stack([v + torch.tensor([0.0, 0.0, -1.0], device=dev), v, v, v * 0.5, v, v])
+    tie_tri = torch.cat([tris[:, 0].T, (tris[:, 1] - tris[:, 0]).T,
+                         (tris[:, 2] - tris[:, 0]).T]).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(5)
+    tie_rays = torch.zeros((7, 1 << 18))
+    tie_rays[0:2] = torch.rand((2, 1 << 18), generator=g) * 2.4 - 1.2
+    tie_rays[2] = 2.0
+    tie_rays[5] = -1.0
+    tie_rays[6] = 1e9
+    tie_rays = tie_rays.to(dev)
+    err.append(check_dense("exact equal-t ties", dense, tie_tri, tie_rays))
+    tie_hits = dense.intersect_closest(tie_tri, tie_rays, tie_rays.shape[1])["prim"]
+    if not bool(((tie_hits == -1) | (tie_hits == 1) | (tie_hits == 3)).all()) \
+            or not bool((tie_hits == 1).any()):
+        raise AssertionError("an exact equal-t tie was not won by the lowest prim")
+    results["dense_closest"] = max(err)
     phase_done(2, t0)
 
     # ---- 3: shading kernels vs twins, same inputs (dense Cornell)
@@ -633,7 +664,7 @@ def main() -> None:
         return pf.Traced(dense.intersect_closest(tri, rays, m))
 
     results.update(compare_stages("[3]", cfg, pf, kernels, sv, usv, scene_dev, n_spp,
-                                  dense_traced))
+                                  dense_traced, depths=range(cfg.max_depth)))
     phase_done(3, t0)
 
     # ---- 4: the golden through the user entry point
@@ -683,6 +714,7 @@ def main() -> None:
         "card": card,
         "launches": launches1,
     }))
+    profile_busy("[5]", "metric 1", r, depth)
 
     # per-kernel times at metric-1 shapes (CUDA events), in turns
     st, si, rays = kernels.raygen(cfg, sv, usv, n_spp)
@@ -702,18 +734,72 @@ def main() -> None:
                           lambda: pf.final_twin(cfg, sv, scene_dev, st, rays, pend, hf)),
     }, {})
     live = int((rays[6] > 0).sum())
+    # a dead ray reads its tmax, a live one its 7 floats; each writes 16 B
+    work1 = {
+        "dense_closest": (4 * rays.shape[1] + 24 * live + nbytes(tri) + 16 * rays.shape[1],
+                          live * tri.shape[1] * TRI_OPS),
+        "mega": (nbytes(st, si, n_spp, rays, pend, h4.hits, scene_dev["fused_table"])
+                 + nbytes(st, pend, rays), n * STAGE_OPS["mega"]),
+    }
     bounds1 = {
-        "dense_closest": bound(nbytes(rays, tri) + 16 * rays.shape[1],
-                               live * tri.shape[1] * TRI_OPS),
+        "dense_closest": bound(*work1["dense_closest"]),
         "raygen": bound(nbytes(n_spp) + n * (4 * pf.ST_ROWS + 8 + 4 * pf.RAY_ROWS),
                         n * STAGE_OPS["raygen"]),
-        "mega": bound(nbytes(st, si, n_spp, rays, pend, h4.hits, scene_dev["fused_table"])
-                      + nbytes(st, pend, rays), n * STAGE_OPS["mega"]),
+        "mega": bound(*work1["mega"]),
         "final_resolve": bound(nbytes(st, pend, rays[:, :3 * n], hf.hits) + 12 * n,
                                n * STAGE_OPS["final_resolve"]),
     }
     for k, (ms, by) in bounds1.items():
         print(f"[5] {k}: bound {ms:.4f} ms ({by})")
+    # both terms: the kernels build -fmad=false, so each product and sum
+    # issues on its own, at half the 67 TFLOP/s the operation term uses
+    for k, (b, o) in work1.items():
+        print(f"[5] {k} at d = 1: bytes {b / PEAK_BYTES_PER_S * 1e3:.4f} ms, operations "
+              f"{o / PEAK_FP32_PER_S * 1e3:.4f} ms at 67 TFLOP/s, "
+              f"{o / (PEAK_FP32_PER_S / 2) * 1e3:.4f} ms unfused; the row uses "
+              f"{bounds1[k][1]}")
+
+    # B1 and mega at each bounce of metric 1, on the buffers the pipeline
+    # makes, in turns: CUDA events around back-to-back wrapper calls, and
+    # CUDA-graph replays (device time alone), beside PR 5's designs' times
+    st, si, rays = kernels.raygen(cfg, sv, usv, n_spp)
+    pend = None
+    per_d = []
+    for d in range(cfg.max_depth):
+        m = rays.shape[1]
+        live = int((rays[6] > 0).sum())
+        hd = pf.Traced(dense.intersect_closest(tri, rays, m))
+        alive = int((st[pf.ST_ALIVE] != 0).sum())
+        fns = {"B1": lambda r=rays, m=m: dense.intersect_closest(tri, r, m),
+               "mega": lambda d=d, st=st, r=rays, p=pend, h=hd: kernels.mega(
+                   cfg, d, sv, usv, scene_dev, n_spp, si, st, r, p, h)}
+        ev = {k: [] for k in fns}
+        gr = {k: [] for k in fns}
+        for rnd in range(2):
+            for k in (list(fns) if rnd == 0 else list(fns)[::-1]):
+                ev[k].append(cuda_ms(fns[k], 10))
+                gr[k].append(graph_ms(fns[k]))
+        out = kernels.mega(cfg, d, sv, usv, scene_dev, n_spp, si, st, rays, pend, hd)
+        b1_bytes = 4 * m + 24 * live + 16 * m
+        b1_ops = live * tri.shape[1] * TRI_OPS
+        mega_bytes = nbytes(st, si, n_spp, rays, pend, hd.hits, scene_dev["fused_table"]) \
+            + nbytes(*out)
+        row = {"d": d, "rays": m, "live": live, "lanes": n, "alive": alive}
+        for k, b, o in (("B1", b1_bytes, b1_ops), ("mega", mega_bytes, n * STAGE_OPS["mega"])):
+            row[k] = {"events_ms": sum(ev[k]) / 2, "graph_ms": sum(gr[k]) / 2,
+                      "pr5_graph_ms": PR5_MS[k][d][0], "pr5_events_ms": PR5_MS[k][d][1],
+                      "bound_bytes_ms": b / PEAK_BYTES_PER_S * 1e3,
+                      "bound_ops_ms": o / PEAK_FP32_PER_S * 1e3,
+                      "bound_ops_unfused_ms": o / (PEAK_FP32_PER_S / 2) * 1e3}
+            print(f"[5] {k} d={d}: {m if k == 'B1' else n} lanes, live "
+                  f"{(live / m if k == 'B1' else alive / n):.4f}; events "
+                  f"{row[k]['events_ms']:.4f} ms, graph {row[k]['graph_ms']:.4f} ms (PR 5: "
+                  f"{PR5_MS[k][d][1]} and {PR5_MS[k][d][0]}); bound bytes "
+                  f"{row[k]['bound_bytes_ms']:.4f} ms, operations {row[k]['bound_ops_ms']:.4f} "
+                  f"ms at 67 TFLOP/s ({row[k]['bound_ops_unfused_ms']:.4f} unfused)")
+        per_d.append(row)
+        st, rays, pend, _ = out
+    print(json.dumps({"metric 1 per bounce": per_d, "card": card}))
     phase_done(5, t0)
 
     # ---- 7: the hosek-sweep scene (bench.py metric 2); B4 / B5 / B6 vs
@@ -866,7 +952,7 @@ def main() -> None:
         "launches": launches2,
     }))
 
-    profile_busy("[9]", "metric 2", rs, depth2)
+    profile_busy("[9]", "metric 2", rs, depth2, start_tracer=False)
 
     # per-kernel times at metric-2 shapes (a real bounce's blocks), in turns
     st, si, rays = kernels.raygen(cfg2, sv2, usv2, n_spp2)
@@ -1337,11 +1423,11 @@ def main() -> None:
         f"{k} {v[1] / v[0]:.3f}" for k, v in times17.items()))
     phase_done(17, t0)
 
-    # ---- 6: records. dense_closest is timed on metric 1's path, dense_any
-    # on the wavefront metric's, the resident kernels on metric 2's bounce
-    # rays with the gate on (launches: the resident metric's), probe_fma on
-    # its probe run, the others on metric 2's (shading kernels: metric 1's
-    # times print in [5])
+    # ---- 6: records. dense_closest and mega are timed on metric 1's path
+    # (its d = 1 bounce), dense_any on the wavefront metric's, the resident
+    # kernels on metric 2's bounce rays with the gate on (launches: the
+    # resident metric's), probe_fma on its probe run, the others on metric
+    # 2's (raygen and final: metric 1's times print in [5])
     src = "fredholm_tpu_torch/csrc/"
     table = [
         ("dense_closest", "dense_closest.cu", "fredholm_tpu/accel/pallas_dense.py:93",
@@ -1350,8 +1436,8 @@ def main() -> None:
          "dense_any", times3, bounds3, launches3),
         ("raygen", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "raygen", times2,
          bounds2, launches2),
-        ("mega", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega", times2, bounds2,
-         launches2),
+        ("mega", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega", times1, bounds1,
+         launches1),
         ("final_resolve", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "final", times2,
          bounds2, launches2),
         ("clustered_closest", "clustered.cu", "fredholm_tpu/accel/pallas_clustered.py:240",

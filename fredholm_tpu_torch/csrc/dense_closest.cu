@@ -8,30 +8,33 @@
 // t > 0; a strict t < best_t from tmax, so on an equal t the lowest prim
 // wins; a miss or a dead lane (tmax <= 0) gives prim -1, t = tmax, u = v = 0.
 //
-// Bound on the H100 at the main path's shapes (metric 1's bounce buffer,
-// [7, 1,048,576] rays, 36 triangles): bytes, ~0.014 ms. A dead ray reads
-// its tmax (4 B), a live one 28 B, and every ray writes 16 B. The operation
-// term, ~40 float operations a live ray-triangle pair at the card's 67
-// TFLOP/s, is below it; the build is -fmad=false, so every product and sum
-// issues on its own and the rate the kernel can reach is half that.
+// Bound on the H100, the larger of two terms. Bytes: a dead ray reads its
+// tmax (4 B), a live one 28 B, and every ray writes 16 B. Operations: ~40
+// float operations a live ray-triangle pair over the card's 67 TFLOP/s.
+// On metric 1's d = 1 bounce buffer ([7, 1,048,576] rays, 58% live, 36
+// triangles) they are 0.011 ms and 0.013 ms; at d >= 2 (fewer live rays)
+// bytes lead. The build is -fmad=false, so every product and sum issues on
+// its own, and the operation term at the unfused rate (half) is twice that.
 //
 // The design, for what held the first one (one thread a ray, a static 36 KB
-// SoA table, every pair through the whole test) 6x above its bound:
+// SoA table; measured with tools/shade_steps.py, PERF.md):
 // - Live rays are compacted inside each block (a warp ballot, prefix counts
 //   over the block's warps, a shared list of live lanes), so the warps that
-//   sweep hold live rays only; dead lanes write their outputs at once, and a
-//   block with no live ray stages nothing.
-// - Each pair is rejected as soon as the full test provably rejects it:
-//   |det| <= 1e-12 (NaN included); then u's and v's numerators against
-//   det's sign, where the product with 1/det cannot round to a signed zero
-//   (`surely_negative`); then t's numerator (t <= 0, a zero included). Pairs
-//   that pass take the full test, operation for operation as the twin, so
-//   the results are bit-equal to it and to the first design.
+//   sweep hold live rays only: a block's sweep costs its live warps, not
+//   its 8. Dead lanes write their outputs at once, and a block with no live
+//   ray stages nothing. This took the d >= 1 bounces from ~0.08 ms to
+//   0.03-0.07 ms; at d = 0, where every ray is live, it changes nothing.
 // - Triangles are 16-byte records (v0, e1, e2, each padded to four floats)
 //   in dynamic shared memory sized to F (48 B a triangle: 1.7 KB for the
 //   Cornell box, 48 KB at the 1024-face limit, no opt-in), read as three
-//   broadcast 16-byte loads. The live list shares that buffer before the
+//   broadcast 16-byte loads; the live list shares the buffer before the
 //   records are staged.
+// - Every pair takes the whole test, operation for operation as the twin
+//   (common.cuh moller_trumbore), so the results are bit-equal to it. An
+//   exact early reject (det's sign against the u, v and t numerators, with
+//   care for signed zero, underflow and NaN) was measured: equal at d = 0,
+//   1.2-1.6x slower at d >= 1. The sweep issues ~100 instructions a pair,
+//   and the divergent branches cost more than the divides they skip.
 #include "common.cuh"
 
 namespace {
@@ -45,23 +48,6 @@ __host__ __device__ constexpr int smem_bytes(int f) {
   return 48 * f > kListBytes ? 48 * f : kListBytes;
 }
 
-// x * RN(1 / det) is certainly negative or NaN, so `>= 0` fails, for a
-// finite det with |det| > 1e-12: x has the other sign (or is NaN), and the
-// product cannot underflow to -0. For |det| <= 1, |RN(1/det)| >= 1; for a
-// finite larger det, RN(1/det) >= 2^-128, so |x| >= 2^-21 keeps the product
-// at or above 2^-149, the least denormal.
-__device__ __forceinline__ bool surely_negative(float x, float det) {
-  const float adet = fabsf(det);
-  const bool finite_det = adet <= 3.4028234663852886e38f;
-  const bool opposite = (x < 0.0f) != (det < 0.0f) && x != 0.0f;
-  return finite_det && (opposite || x != x) && (adet <= 1.0f || fabsf(x) >= 0x1p-21f);
-}
-
-// kCompact: sweep with the block's live rays compacted. kReject: 0 every
-// pair through the whole test; 1 each lane leaves a pair as soon as the
-// full test provably rejects it; 2 a warp leaves a pair when every lane's
-// full test provably rejects it (lanes that pass on take the whole test)
-template <bool kCompact, int kReject>
 __global__ void __launch_bounds__(kBlock)
     k_dense_closest(const float* __restrict__ rays, long long stride, int m,
                     const float* __restrict__ tri, int f, float* __restrict__ t_out,
@@ -94,11 +80,10 @@ __global__ void __launch_bounds__(kBlock)
     offset += w < warp ? c : 0;
     total += c;
   }
-  if (kCompact && live) s_list[offset + __popc(ballot & ((1u << lane) - 1u))] = threadIdx.x;
+  if (live) s_list[offset + __popc(ballot & ((1u << lane) - 1u))] = threadIdx.x;
   __syncthreads();
   if (total == 0) return;  // the whole block: no live ray, nothing to stage
-  const int mine = kCompact ? (threadIdx.x < total ? s_list[threadIdx.x] : -1)
-                            : (live ? (int)threadIdx.x : -1);
+  const int mine = (int)threadIdx.x < total ? s_list[threadIdx.x] : -1;
   __syncthreads();  // the list is read; the records take the buffer
 
   // ---- stage the triangle records
@@ -117,44 +102,19 @@ __global__ void __launch_bounds__(kBlock)
   float best_t = rays[6 * stride + j];
   int best = -1;
   float bu = 0.0f, bv = 0.0f;
-  const unsigned warp_mask = __activemask();  // every lane here runs all f pairs
 #pragma unroll 2
   for (int s = 0; s < f; ++s) {
-    const float4 a = s_buf[3 * s];      // v0
+    const float4 v0 = s_buf[3 * s];
     const float4 e1 = s_buf[3 * s + 1];
     const float4 e2 = s_buf[3 * s + 2];
-    // the twin's evaluation order (common.cuh moller_trumbore)
-    const float px = dy * e2.z - dz * e2.y;
-    const float py = dz * e2.x - dx * e2.z;
-    const float pz = dx * e2.y - dy * e2.x;
-    const float det = e1.x * px + e1.y * py + e1.z * pz;
-    const bool ok_det = fabsf(det) > 1e-12f;
-    if (kReject == 1 && !ok_det) continue;
-    const float tx = ox - a.x, ty = oy - a.y, tz = oz - a.z;
-    const float un = tx * px + ty * py + tz * pz;
-    bool pass = ok_det && !surely_negative(un, det);
-    if (kReject == 1 && !pass) continue;
-    if (kReject == 2 && !__any_sync(warp_mask, pass)) continue;
-    const float qx = ty * e1.z - tz * e1.y;
-    const float qy = tz * e1.x - tx * e1.z;
-    const float qz = tx * e1.y - ty * e1.x;
-    const float vn = dx * qx + dy * qy + dz * qz;
-    const float tn = e2.x * qx + e2.y * qy + e2.z * qz;
-    // t = tn * RN(1/det) > 0 needs tn and det of one sign, neither zero
-    pass = pass && !surely_negative(vn, det) &&
-           ((tn > 0.0f && det > 0.0f) || (tn < 0.0f && det < 0.0f));
-    if (kReject == 1 && !pass) continue;
-    if (kReject == 2 && !__any_sync(warp_mask, pass)) continue;
-    const float inv_det = ok_det ? 1.0f / det : 0.0f;
-    const float u = un * inv_det;
-    const float v = vn * inv_det;
-    const float t = tn * inv_det;
+    MtHit h = moller_trumbore(ox, oy, oz, dx, dy, dz, v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x,
+                              e2.y, e2.z);
     // strict <: on equal t the lowest prim index wins
-    if (ok_det && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 0.0f) && t < best_t) {
-      best_t = t;
+    if (h.valid && h.t < best_t) {
+      best_t = h.t;
       best = s;
-      bu = u;
-      bv = v;
+      bu = h.u;
+      bv = h.v;
     }
   }
   t_out[j] = best_t;  // tmax on a miss
@@ -163,34 +123,12 @@ __global__ void __launch_bounds__(kBlock)
   v_out[j] = bv;
 }
 
-template <bool kCompact, int kReject>
-int launch(const float* rays, long long stride, int m, const float* tri, int f, float* t,
-           int* prim, float* u, float* v, cudaStream_t stream) {
-  if (f < 1 || f > kDenseMaxTris || m < 1) return (int)cudaErrorInvalidValue;
-  k_dense_closest<kCompact, kReject><<<(m + kBlock - 1) / kBlock, kBlock, smem_bytes(f), stream>>>(
-      rays, stride, m, tri, f, t, prim, u, v);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int fh_dense_closest(const float* rays, long long stride, int m, const float* tri, int f,
                                 float* t, int* prim, float* u, float* v, cudaStream_t stream) {
-  return launch<true, 1>(rays, stride, m, tri, f, t, prim, u, v, stream);
-}
-
-// The design's steps, for tools/shade_steps.py: 1 the records alone, 2 with
-// the exact reject a lane, 3 with the compaction, 4 both, 5 the compaction
-// and the exact reject a warp
-extern "C" int fh_dense_closest_step(const float* rays, long long stride, int m, const float* tri,
-                                     int f, float* t, int* prim, float* u, float* v, int step,
-                                     cudaStream_t stream) {
-  switch (step) {
-    case 1: return launch<false, 0>(rays, stride, m, tri, f, t, prim, u, v, stream);
-    case 2: return launch<false, 1>(rays, stride, m, tri, f, t, prim, u, v, stream);
-    case 3: return launch<true, 0>(rays, stride, m, tri, f, t, prim, u, v, stream);
-    case 4: return launch<true, 1>(rays, stride, m, tri, f, t, prim, u, v, stream);
-    case 5: return launch<true, 2>(rays, stride, m, tri, f, t, prim, u, v, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (f < 1 || f > kDenseMaxTris || m < 1) return (int)cudaErrorInvalidValue;
+  k_dense_closest<<<(m + kBlock - 1) / kBlock, kBlock, smem_bytes(f), stream>>>(rays, stride, m,
+                                                                               tri, f, t, prim, u, v);
+  return (int)cudaGetLastError();
 }

@@ -169,7 +169,8 @@ def mega_launch(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
                 sample_idx, state, rays, pending, tr: pf.Traced):
     """The checked launch arguments of the mega kernel on CUDA tensors and
     the outputs it writes: (ShadeArgs, (state, rays, pending, aov or
-    None)). `mega` launches it; tools/shade_steps.py times its steps."""
+    None)). `mega` launches it; tools/shade_steps.py launches another
+    tree's kernel with it."""
     n = cfg.width * cfg.height
     dev = sv.device
     nb_in = 1 if d == 0 else len(cfg.blocks)

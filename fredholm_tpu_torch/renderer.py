@@ -115,7 +115,7 @@ class Renderer:
         self._lobes = _scene_lobes(scene)
         self.scene = scene
         # a loaded scene's camera (renderer.py:314-318)
-        if getattr(scene, "has_camera_transform", False) and scene.camera_transform is not None:
+        if scene.has_camera_transform and scene.camera_transform is not None:
             self.camera.set_transform(scene.camera_transform)
         self.init_render_states()
 

@@ -1,20 +1,23 @@
-"""Time the steps of the B1 and mega redesigns against the design before.
+"""Time B1 and mega against another tree's kernels, in turns on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU:
     python3 -m fredholm_tpu_torch.tools.shade_steps CSRC_DIR [pairs]
 
-CSRC_DIR holds the csrc/ sources of the design to compare with (the
-parent tree's). Both are built; then metric 1's inputs are made stage by
-stage as the fused pipeline makes them (the Cornell box at 512x512, depth
-5, raygen and then, for d = 0..4, the dense trace and mega), and at each
-d the dense closest hit (B1) and mega run in every step of csrc/'s
-`fh_dense_closest_step` / `fh_mega_step` and in the other tree's kernel:
-held equal to the other tree's outputs (B1 bit for bit; mega in value, a
-signed zero aside), then timed in `pairs` pairs (default 5), the order
-inside a pair alternating: device ms of one call from CUDA-graph replays,
-and CUDA events around back-to-back launches. Prints the live share of
-each input, both terms of each bound, registers and spills, and one JSON
-line with every mean.
+CSRC_DIR holds the csrc/ sources of the design to compare with (a parent
+tree's: `git archive <commit> fredholm_tpu_torch/csrc` unpacked under a
+directory .gitignore lists). Both are built; then metric 1's inputs are
+made stage by stage as the fused pipeline makes them (the Cornell box at
+512x512, depth 5: raygen and then, for d = 0..4, the dense trace and
+mega), and at each d the dense closest hit (B1) and mega of both trees
+run on the same inputs: held equal to the other tree's outputs (B1 bit
+for bit; mega in value, NaN equal to NaN), then timed in `pairs` pairs
+(default 5), the order inside a pair alternating: device ms of one call
+from CUDA-graph replays, and CUDA events around back-to-back launches.
+mega is also timed at metric 2's d = 1 (the hosek sweep, the rich
+variant). Prints the live share of each input, both terms of each bound,
+registers and spills, and one JSON line with every mean. At commit
+4f5d229 the script timed each step of the redesign (`fh_*_step` entry
+points, since removed with the steps that lost).
 """
 
 from __future__ import annotations
@@ -36,24 +39,13 @@ from fredholm_tpu_torch.fused import kernels  # noqa: E402
 from fredholm_tpu_torch.fused import pt_fused as pf  # noqa: E402
 from fredholm_tpu_torch.scene.device import build_device_scene  # noqa: E402
 
-B1_STEPS = {1: "records", 2: "records + reject a lane", 3: "records + compaction",
-            4: "records + reject a lane + compaction", 5: "records + reject a warp + compaction"}
-MEGA_STEPS = {1: "first body, 6 blocks an SM", 2: "first body, 7 blocks an SM",
-              3: "first body, 8 blocks an SM", 4: "first body, 6 blocks an SM, L1 carveout",
-              5: "short path, 6 blocks an SM", 6: "short path + compaction, 6 blocks an SM"}
-
-
-def bind(handle, steps: bool):
+def bind(handle):
+    """The two entry points, bound on a library of either tree."""
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     handle.fh_dense_closest.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
     handle.fh_dense_closest.restype = i
     handle.fh_mega.argtypes = [ctypes.POINTER(_build.ShadeArgs), vp]
     handle.fh_mega.restype = i
-    if steps:
-        handle.fh_dense_closest_step.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, i, vp]
-        handle.fh_dense_closest_step.restype = i
-        handle.fh_mega_step.argtypes = [ctypes.POINTER(_build.ShadeArgs), i, vp]
-        handle.fh_mega_step.restype = i
     return handle
 
 
@@ -64,9 +56,9 @@ def main() -> None:
     pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     card = cs.card_line()
     dev = torch.device("cuda")
-    new = bind(_build.lib(), True)
+    new = bind(_build.lib())
     other_info = {}
-    old = bind(ctypes.CDLL(_build.build(other_csrc, other_info)), False)
+    old = bind(ctypes.CDLL(_build.build(other_csrc, other_info)))
     for tag, info in (("new", _build.BUILD_INFO), ("before", other_info)):
         for k, v in info.get("ptxas", {}).items():
             if "dense_closest" in k or "k_mega" in k:
@@ -85,13 +77,11 @@ def main() -> None:
     def stream():  # at each launch: graph capture runs on its own stream
         return torch.cuda.current_stream().cuda_stream
 
-    def b1_launch(fn, rays, out, step=None):
+    def b1_launch(fn, rays, out):
         m = rays.shape[1]
-        ptrs = (rays.data_ptr(), rays.stride(0), m, tri.data_ptr(), tri.shape[1],
-                out["t"].data_ptr(), out["prim"].data_ptr(), out["u"].data_ptr(),
-                out["v"].data_ptr())
-        err = fn(*ptrs, stream()) if step is None else fn(*ptrs, step, stream())
-        _build.check(err, "dense_closest")
+        _build.check(fn(rays.data_ptr(), rays.stride(0), m, tri.data_ptr(), tri.shape[1],
+                        out["t"].data_ptr(), out["prim"].data_ptr(), out["u"].data_ptr(),
+                        out["v"].data_ptr(), stream()), "dense_closest")
 
     def b1_out(m):
         return {"t": torch.empty(m, device=dev), "prim": torch.empty(m, dtype=torch.int32,
@@ -106,9 +96,8 @@ def main() -> None:
         live = int((rays[6] > 0).sum())
         want = b1_out(m)
         b1_launch(old.fh_dense_closest, rays, want)
-        fns = {"before": lambda o, r=rays: b1_launch(old.fh_dense_closest, r, o)}
-        for k in B1_STEPS:
-            fns[f"step {k}"] = lambda o, r=rays, k=k: b1_launch(new.fh_dense_closest_step, r, o, k)
+        fns = {"before": lambda o, r=rays: b1_launch(old.fh_dense_closest, r, o),
+               "now": lambda o, r=rays: b1_launch(new.fh_dense_closest, r, o)}
         for name, fn in fns.items():
             got = b1_out(m)
             fn(got)
@@ -119,7 +108,7 @@ def main() -> None:
                 raise AssertionError(f"B1 d={d} {name} differs from the design before: {diff}")
         b_bytes = 4 * m + 24 * live + 16 * m
         b_ops = live * tri.shape[1] * cs.TRI_OPS
-        print(f"[B1 d={d}] rays {m}, live {live} ({live / m:.4f}); bit-equal in every step; "
+        print(f"[B1 d={d}] rays {m}, live {live} ({live / m:.4f}); bit-equal; "
               f"bound bytes {b_bytes / cs.PEAK_BYTES_PER_S * 1e3:.4f} ms, operations "
               f"{b_ops / cs.PEAK_FP32_PER_S * 1e3:.4f} ms at 67 TFLOP/s "
               f"({b_ops / (cs.PEAK_FP32_PER_S / 2) * 1e3:.4f} ms unfused)")
@@ -160,26 +149,24 @@ def main() -> None:
 
 def time_mega(tag, old, new, cfg, d, sv, usv, scene, n_spp, si, st, rays, pend, tr, hits, n,
               pairs, card, results):
-    """mega at d on these inputs in every step and in the other tree's
-    kernel: held equal to the other tree's outputs, then timed in pairs.
-    Returns the other tree's outputs."""
+    """mega at d on these inputs in both trees' kernels: held equal to the
+    other tree's outputs, then timed in pairs. Returns the other tree's
+    outputs."""
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def mega_call(fn, step, a):
-        _build.check(fn(a, stream()) if step is None else fn(a, step, stream()), "mega")
+    def mega_call(fn, a):
+        _build.check(fn(a, stream()), "mega")
 
     a_want, out_want = kernels.mega_launch(cfg, d, sv, usv, scene, n_spp, si, st, rays, pend, tr)
-    mega_call(old.fh_mega, None, a_want)
-    mfns = {"before": (old.fh_mega, None)}
-    for k in MEGA_STEPS:
-        mfns[f"step {k}"] = (new.fh_mega_step, k)
+    mega_call(old.fh_mega, a_want)
+    mfns = {"before": old.fh_mega, "now": new.fh_mega}
     alive = st[pf.ST_ALIVE] != 0
     rad_hits = tr.hits["prim"][(len(cfg.blocks) - 1 - tr.n_occ(n)) * n if d else 0:][:n]
     shade = alive & (rad_hits >= 0)
-    for name, (fn, step) in mfns.items():
+    for name, fn in mfns.items():
         a, out = kernels.mega_launch(cfg, d, sv, usv, scene, n_spp, si, st, rays, pend, tr)
-        mega_call(fn, step, a)
+        mega_call(fn, a)
         torch.cuda.synchronize()
         for x, y, what in zip(out, out_want, ("state", "rays", "pending", "aov")):
             same = (x == y) | (torch.isnan(x) & torch.isnan(y)) if x is not None else None
@@ -190,20 +177,20 @@ def time_mega(tag, old, new, cfg, d, sv, usv, scene, n_spp, si, st, rays, pend, 
         ins.append(scene["fused_table"])
     mb = cs.nbytes(*ins) + cs.nbytes(*out_want)
     print(f"[{tag}] lanes {n}, alive {int(alive.sum())}, shading {int(shade.sum())} "
-          f"({float(shade.float().mean()):.4f}); equal in every step; bound bytes "
+          f"({float(shade.float().mean()):.4f}); equal; bound bytes "
           f"{mb / cs.PEAK_BYTES_PER_S * 1e3:.4f} ms, operations "
           f"{n * cs.STAGE_OPS['mega'] / cs.PEAK_FP32_PER_S * 1e3:.4f} ms")
     launches, keep = {}, []
-    for name, (fn, step) in mfns.items():
+    for name, fn in mfns.items():
         a, out = kernels.mega_launch(cfg, d, sv, usv, scene, n_spp, si, st, rays, pend, tr)
         keep.append(out)  # the launches write into these
-        launches[name] = (lambda fn=fn, step=step, a=a: mega_call(fn, step, a))
+        launches[name] = (lambda fn=fn, a=a: mega_call(fn, a))
     results[tag] = time_pairs(launches, pairs, card, tag)
     return out_want
 
 
 def time_pairs(fns, pairs, card, tag):
-    """{name: {"graph": mean ms, "events": mean ms}}: every function against
+    """{name: {"graph": mean ms, "events": mean ms}}: the functions against
     the first ("before") in `pairs` pairs, the order alternating."""
     names = list(fns)
     ev = {k: [] for k in names}

@@ -24,6 +24,8 @@
   bit-equal.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -41,12 +43,15 @@ from fredholm_tpu.scene.device import world_face_data as j_wfd
 from fredholm_tpu.scene.procedural import terrain as j_terrain
 from fredholm_tpu.scene.types import materials_to_soa as j_mats
 from fredholm_tpu_torch import _build
+from fredholm_tpu_torch.accel import bvh as tbvh
+from fredholm_tpu_torch.accel import cluster as tcluster
 from fredholm_tpu_torch.accel import clustered as tcl
 from fredholm_tpu_torch.fused import slot_fetch as tsf
 from fredholm_tpu_torch.scene import device as tdev
 from fredholm_tpu_torch.scene.procedural import hosek_sweep_scene, terrain
 
 from test_bvh import _sphere_blas
+from test_torch_cache import cached
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores
@@ -80,23 +85,52 @@ def _reference_numpy_path(j_scene):
     return bvh, tlas, j_slot_attrs(np_dev, np.asarray(tlas.blocks[9]))
 
 
+def _tables_out(bvh, tlas, slots):
+    return {**{"bvh_" + f: getattr(bvh, f) for f in BVH_FIELDS},
+            **{"tlas_" + f: getattr(tlas, f) for f in TLAS_FIELDS + ("inst_identity",)},
+            "slots": slots}
+
+
+def _tables_in(z, bvh_cls, tlas_cls):
+    bvh = bvh_cls(**{f: z["bvh_" + f] for f in BVH_FIELDS})
+    tlas = tlas_cls(**{f: z["tlas_" + f] for f in TLAS_FIELDS},
+                    inst_identity=bool(z["tlas_inst_identity"]))
+    return bvh, tlas, z["slots"]
+
+
+def _scene_key(scene):
+    return [getattr(scene, k) for k in ("vertices", "normals", "texcoords", "indices",
+                                        "material_ids")] + [vars(m) for m in scene.materials]
+
+
 @pytest.fixture(scope="module", params=["hosek_sweep", "terrain48"])
-def both_tables(request):
+def both_tables(request, tmp_path_factory):
     if request.param == "hosek_sweep":
         scene, j_scene = hosek_sweep_scene(), bench._sweep_scene()
     else:
         scene, j_scene = terrain(n=48, size=6.0), j_terrain(n=48, size=6.0)
-    # the BVH the upload builds, kept as it is built (the numpy builder
-    # takes seconds on the sweep, so it runs once)
-    built = []
-    real = tdev.build_bvh
-    tdev.build_bvh = lambda lo, hi: built.append(real(lo, hi)) or built[-1]
-    try:
-        host = tdev.build_host_tables(scene)
-    finally:
-        tdev.build_bvh = real
-    assert len(built) == 1
-    return scene, j_scene, built[0], host, _reference_numpy_path(j_scene)
+
+    def port():
+        # the BVH the upload builds, kept as it is built (the numpy builder
+        # takes seconds on the sweep, so it runs once a session)
+        built = []
+        real = tdev.build_bvh
+        tdev.build_bvh = lambda lo, hi: built.append(real(lo, hi)) or built[-1]
+        try:
+            host = tdev.build_host_tables(scene)
+        finally:
+            tdev.build_bvh = real
+        assert len(built) == 1
+        return _tables_out(built[0], host["tlas"], host["slot_attrs"])
+
+    bvh, tlas, slots = _tables_in(
+        cached(tmp_path_factory, "numpy_tables_port", _scene_key(scene), port),
+        tbvh.BVH, tcluster.TLAS)
+    j_tables = _tables_in(
+        cached(tmp_path_factory, "numpy_tables_reference", _scene_key(j_scene),
+               lambda: _tables_out(*_reference_numpy_path(j_scene))),
+        types.SimpleNamespace, types.SimpleNamespace)
+    return scene, j_scene, bvh, {"tlas": tlas, "slot_attrs": slots}, j_tables
 
 
 def test_hosek_sweep_scene_is_the_bench_scene():
@@ -234,16 +268,23 @@ def _sphere_case(instanced: bool):
 
 
 @pytest.fixture(scope="module", params=["identity", "instanced"])
-def traversal_case(request):
+def traversal_case(request, tmp_path_factory):
     instanced = request.param == "instanced"
     c, j_c, rays, tlas = _sphere_case(instanced)
     assert c["identity"] == (not instanced)
-    o = jnp.asarray(rays[0:3].T.numpy())
-    d = jnp.asarray(rays[3:6].T.numpy())
-    t = jnp.asarray(rays[6].numpy())
-    want = pc.intersect_closest_clustered(j_c, o, d, t, identity=not instanced)
-    want = {k: np.asarray(v) for k, v in want.items()}
-    want_occ = np.asarray(pc.intersect_any_clustered(j_c, o, d, t, identity=not instanced))
+
+    def reference():
+        o = jnp.asarray(rays[0:3].T.numpy())
+        d = jnp.asarray(rays[3:6].T.numpy())
+        t = jnp.asarray(rays[6].numpy())
+        want = pc.intersect_closest_clustered(j_c, o, d, t, identity=not instanced)
+        occ = pc.intersect_any_clustered(j_c, o, d, t, identity=not instanced)
+        return {**{k: np.asarray(v) for k, v in want.items()}, "occ": np.asarray(occ)}
+
+    want = cached(tmp_path_factory, "clustered_traversal",
+                  (instanced, rays.numpy(), {k: np.asarray(v) for k, v in j_c.items()}),
+                  reference)
+    want_occ = want.pop("occ")
     return c, rays, tlas, want, want_occ
 
 

@@ -170,3 +170,73 @@ def test_wrapper_counts_twin_and_checks_inputs():
         dense.intersect_closest(torch.as_tensor(tri9[:8]), torch.as_tensor(rays), 64)
     with pytest.raises(ValueError):
         dense.intersect_closest(torch.as_tensor(tri9), torch.as_tensor(rays), 65)
+
+
+def _edge_tris():
+    """Four triangles, each of whose tests is exact in float32: the unit
+    right triangle in z = 0 (det 1), and thin ones whose det is exactly
+    f32(1e-12), -f32(1e-12) and the next float above f32(1e-12)."""
+    a = np.float32(1e-12)
+    above = np.nextafter(a, np.float32(np.inf))
+    v0 = [(0.0, 0.0, 0.0), (0.0, 10.0, 0.0), (0.0, 20.0, 0.0), (0.0, 30.0, 0.0)]
+    e1 = [(1.0, 0.0, 0.0), (a, 0.0, 0.0), (-a, 0.0, 0.0), (above, 0.0, 0.0)]
+    e2 = [(0.0, 1.0, 0.0)] * 4
+    return np.ascontiguousarray(
+        np.concatenate([np.asarray(x, np.float32).T for x in (v0, e1, e2)]))
+
+
+def _edge_rays(case):
+    """Eight rays straight down (-z) from z = 1 for one contract edge case:
+    (origin x, y) and tmax per lane."""
+    a = np.float32(1e-12)
+    q = np.float32(a / 4)
+    if case == "all dead":
+        xy = [(0.25, 0.25)] * 8
+        tmax = [-1.0, 0.0, -0.0, -1e9, -1.0, 0.0, -2.0, -1.0]
+    elif case == "one live":
+        xy = [(0.25, 0.25)] * 8
+        tmax = [-1.0] * 3 + [1e9] + [-1.0] * 4
+    elif case == "det 1e-12":
+        # u = v = 0.25 and t = 1 on each thin triangle; only the one whose
+        # |det| exceeds 1e-12 is hit
+        xy = [(q, 10.25), (-q, 20.25), (np.nextafter(a, np.float32(1)) / 4, 30.25),
+              (q, 10.25), (-q, 20.25), (0.25, 0.25), (0.5, 0.5), (q, 30.25)]
+        tmax = [1e9] * 8
+    elif case == "u + v = 1":
+        # on the hypotenuse, past it by one ulp of u + v, on the u = 0 and
+        # v = 0 edges and at the vertices
+        xy = [(0.5, 0.5), (0.5, 0.5 + 2.0 ** -23), (0.0, 0.5),
+              (0.5, 0.0), (0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (0.75, 0.25)]
+        tmax = [1e9] * 8
+    else:  # "t = tmax": the hit is at t = 1 exactly
+        xy = [(0.25, 0.25)] * 8
+        one = np.float32(1.0)
+        tmax = [1.0, np.nextafter(one, np.float32(2)), np.nextafter(one, np.float32(0)), 2.0,
+                1.0, 0.5, 1e9, 1.0]
+    rays = np.zeros((7, 8), np.float32)
+    rays[0:2] = np.asarray(xy, np.float32).T
+    rays[2] = 1.0
+    rays[5] = -1.0
+    rays[6] = np.asarray(tmax, np.float32)
+    return rays
+
+
+@pytest.mark.parametrize("case", ["all dead", "one live", "det 1e-12", "u + v = 1", "t = tmax"])
+def test_contract_edge_cases(case):
+    """The contract's edges, where every operation is exact in float32 and
+    the twin and the interpret-mode reference must agree bit for bit."""
+    tri9, rays = _edge_tris(), _edge_rays(case)
+    ref, got = _reference(tri9, rays), _port(tri9, rays)
+    hit = got["prim"] >= 0
+    np.testing.assert_array_equal(hit, ref["hit"])
+    np.testing.assert_array_equal(got["prim"], np.where(hit, ref["prim"], -1))
+    for k in ("t", "u", "v"):
+        np.testing.assert_array_equal(got[k][hit], ref[k][hit], err_msg=k)
+    np.testing.assert_array_equal(got["t"][~hit], rays[6][~hit])
+    assert (got["u"][~hit] == 0).all() and (got["v"][~hit] == 0).all()
+    want_hits = {"all dead": 0, "one live": 1, "det 1e-12": 4, "u + v = 1": 7, "t = tmax": 3}
+    assert int(hit.sum()) == want_hits[case], got["prim"]
+    if case == "det 1e-12":
+        np.testing.assert_array_equal(got["prim"], [-1, -1, 3, -1, -1, 0, 0, 3])
+    if case == "t = tmax":
+        np.testing.assert_array_equal(hit, [False, True, False, True, False, False, True, False])

@@ -39,6 +39,7 @@ from fredholm_tpu_torch.fused.cvec import V3
 from fredholm_tpu_torch.scene.procedural import terrain
 from fredholm_tpu_torch.sky import hosek as th
 
+from test_torch_cache import cached
 from test_torch_shade import _compare, _to_jax
 
 # one intra-op thread: the suite runs its files in parallel processes, and
@@ -177,13 +178,16 @@ def port_render():
 
 
 @pytest.fixture(scope="module")
-def reference_layers():
-    j = _setup(JRenderer, j_terrain(n=48, size=6.0))
-    j.use_pallas = False
-    cfg = j._config(1, 3)
-    assert cfg.use_fused and not cfg.use_dense and cfg.lobes_on == ("specular", "diffuse_r")
-    j.render(n_samples=2, max_depth=3)
-    return {k: np.asarray(v) for k, v in j.layers.items()}
+def reference_layers(tmp_path_factory):
+    def render():
+        j = _setup(JRenderer, j_terrain(n=48, size=6.0))
+        j.use_pallas = False
+        cfg = j._config(1, 3)
+        assert cfg.use_fused and not cfg.use_dense and cfg.lobes_on == ("specular", "diffuse_r")
+        j.render(n_samples=2, max_depth=3)
+        return {k: np.asarray(v) for k, v in j.layers.items()}
+
+    return cached(tmp_path_factory, "hosek_terrain_layers", ("terrain48", SUN, 2, 3), render)
 
 
 def test_render_went_through_the_clustered_path(port_render):

@@ -24,6 +24,8 @@ from fredholm_tpu_torch import Renderer, cornell_box
 from fredholm_tpu_torch.scene import device as tdev
 from fredholm_tpu_torch.scene.procedural import sphere_array_test
 
+from test_torch_cache import cached
+
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores
 torch.set_num_threads(1)
@@ -99,14 +101,28 @@ def test_dev_from_reference_round_trip(reference_tables):
             assert carried[k] == v, k
 
 
+def _reference_layers(tmp_path_factory, name, setup, **kw):
+    """The reference's layers of setup() rendered with kw, once a session."""
+    def render():
+        j = setup()
+        j.render(**kw)
+        return {k: np.asarray(v) for k, v in j.layers.items()}
+
+    return cached(tmp_path_factory, name, sorted(kw.items()), render)
+
+
 @pytest.fixture(scope="module")
-def both_renders():
-    j = _setup(JRenderer)
-    assert j._config(1, 4).use_fused and j._config(1, 4).lobes_on == ("diffuse_r",)
-    j.render(n_samples=2, max_depth=4)
+def both_renders(tmp_path_factory):
+    def setup():
+        j = _setup(JRenderer)
+        assert j._config(1, 4).use_fused and j._config(1, 4).lobes_on == ("diffuse_r",)
+        return j
+
+    want = _reference_layers(tmp_path_factory, "cornell_layers", setup, n_samples=2,
+                             max_depth=4)
     t = _setup(Renderer, device="cpu")
     t.render(n_samples=2, max_depth=4)
-    return t.layers, {k: np.asarray(v) for k, v in j.layers.items()}
+    return t.layers, want
 
 
 @pytest.mark.parametrize("key", LAYERS)
@@ -120,6 +136,43 @@ def test_slice_path_vertices_match(both_renders):
     np.testing.assert_allclose(float(got["n_path_vertices"]),
                                float(want["n_path_vertices"]), rtol=1e-6)
     assert float(got["n_lane_slots"]) == float(want["n_lane_slots"]) == 32 * 32 * 4 * 2
+
+
+def _camera_transform() -> np.ndarray:
+    """A camera-to-world 4x4 (right, up, backward, origin columns) inside
+    the box, turned left and down: another camera than the default's."""
+    origin = np.asarray([0.25, 1.15, 0.5], np.float32)
+    f = np.asarray([-0.35, -0.25, -1.0], np.float32)
+    f /= np.linalg.norm(f)
+    r = np.cross(f, [0.0, 1.0, 0.0])
+    r /= np.linalg.norm(r)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = r, np.cross(r, f), -f, origin
+    return m
+
+
+def _camera_scene(cls):
+    r = cls(width=64, height=64, **({"device": "cpu"} if cls is Renderer else {}))
+    scene = cornell_box() if cls is Renderer else j_cornell()
+    scene.has_camera_transform = True
+    scene.camera_transform = _camera_transform()
+    r.set_scene(scene)
+    return r
+
+
+def test_scene_camera_transform_matches_reference(tmp_path_factory):
+    """set_scene takes a scene's camera transform, as the reference does
+    (renderer.py:314-318): both render it from that camera."""
+    want = _reference_layers(tmp_path_factory, "cornell_camera_layers",
+                             lambda: _camera_scene(JRenderer), n_samples=2, max_depth=3)
+    t = _camera_scene(Renderer)
+    np.testing.assert_array_equal(t.camera.transform, _camera_transform())
+    np.testing.assert_array_equal(t.camera.origin, _camera_transform()[:3, 3])
+    t.render(n_samples=2, max_depth=3)
+    for key in LAYERS:
+        np.testing.assert_allclose(t.layers[key].numpy(), want[key], rtol=2e-4, atol=2e-4,
+                                   err_msg=key)
+    assert float(t.layers["n_path_vertices"]) == float(want["n_path_vertices"]) > 0
 
 
 def test_progressive_accumulation_is_exact():
@@ -170,18 +223,28 @@ def _metal_row(cls, **kw):
     return r
 
 
+def _metal_row_reference(tmp_path_factory):
+    """The reference's metal_row layers at 2 spp, depth 3, on its plain
+    path (use_pallas=False), once a session."""
+    def setup():
+        j = _metal_row(JRenderer)
+        j.use_pallas = False
+        cfg = j._config(1, 3)
+        assert cfg.use_fused and not cfg.use_dense
+        assert cfg.lobes_on == ("metal", "specular", "diffuse_r")
+        return j
+
+    return _reference_layers(tmp_path_factory, "metal_row_layers", setup, n_samples=2,
+                             max_depth=3)
+
+
 @pytest.fixture(scope="module")
-def metal_renders():
-    j = _metal_row(JRenderer)
-    j.use_pallas = False
-    cfg = j._config(1, 3)
-    assert cfg.use_fused and not cfg.use_dense
-    assert cfg.lobes_on == ("metal", "specular", "diffuse_r")
-    j.render(n_samples=2, max_depth=3)
+def metal_renders(tmp_path_factory):
+    want = _metal_row_reference(tmp_path_factory)
     t = _metal_row(Renderer, device="cpu")
-    assert "clusters" in t._dev and t._lobes == cfg.lobes_on
+    assert "clusters" in t._dev and t._lobes == ("metal", "specular", "diffuse_r")
     t.render(n_samples=2, max_depth=3)
-    return t.layers, {k: np.asarray(v) for k, v in j.layers.items()}
+    return t.layers, want
 
 
 @pytest.mark.parametrize("key", LAYERS)

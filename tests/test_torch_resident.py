@@ -33,7 +33,6 @@ from fredholm_tpu.accel import pallas_clustered as pc
 from fredholm_tpu.accel.cluster import build_tlas as j_build_tlas
 from fredholm_tpu.experimental import compact as j_compact
 from fredholm_tpu.experimental import pallas_resident as pr
-from fredholm_tpu.renderer import Renderer as JRenderer
 from fredholm_tpu_torch import Renderer, _build, cornell_box
 from fredholm_tpu_torch.accel.bvh import build_bvh
 from fredholm_tpu_torch.accel.cluster import build_tlas, extract_hierarchy
@@ -44,7 +43,8 @@ from fredholm_tpu_torch.scene.procedural import _quad, _scene, uv_sphere
 from fredholm_tpu_torch.scene.types import Material
 
 from test_bvh import _sphere_blas
-from test_torch_render import LAYERS, _metal_row
+from test_torch_cache import cached
+from test_torch_render import LAYERS, _metal_row, _metal_row_reference
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores
@@ -86,7 +86,7 @@ def test_prepare_resident_byte_equal(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def sphere_case():
+def sphere_case(tmp_path_factory):
     """Tables of the sphere BLAS, 512 rays from around and inside it with
     dead lanes and finite tmax, and the reference's closest hits and
     occlusion (interpret mode)."""
@@ -107,9 +107,16 @@ def sphere_case():
     tmax[rng.uniform(size=512) < 0.2] = -1.0
     tmax[:4] = 0.0
     rays = torch.as_tensor(np.ascontiguousarray(np.concatenate([o.T, d.T, tmax[None]])))
-    args = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax))
-    want = {k: np.asarray(v) for k, v in pr.intersect_closest_resident(dev_c, *args).items()}
-    want_occ = np.asarray(pr.intersect_any_resident(dev_c, *args))
+
+    def reference():
+        args = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax))
+        want = pr.intersect_closest_resident(dev_c, *args)
+        occ = pr.intersect_any_resident(dev_c, *args)
+        return {**{k: np.asarray(v) for k, v in want.items()}, "occ": np.asarray(occ)}
+
+    want = cached(tmp_path_factory, "resident_traversal",
+                  (rays.numpy(), {k: np.asarray(v) for k, v in dev_c.items()}), reference)
+    want_occ = want.pop("occ")
     return c, rays, want, want_occ
 
 
@@ -240,11 +247,8 @@ def test_routing(monkeypatch):
     assert "res_meta" not in _metal_row(Renderer, device="cpu")._dev["clusters"]
 
 
-def test_metal_row_gate_on_matches_reference(monkeypatch):
-    j = _metal_row(JRenderer)
-    j.use_pallas = False
-    j.render(n_samples=2, max_depth=3)
-    want = {k: np.asarray(v) for k, v in j.layers.items()}
+def test_metal_row_gate_on_matches_reference(monkeypatch, tmp_path_factory):
+    want = _metal_row_reference(tmp_path_factory)
     monkeypatch.setenv(GATE, "1")
     t = _metal_row(Renderer, device="cpu")
     got, n = _render(t, n_samples=2, max_depth=3)

@@ -151,6 +151,77 @@ def test_mega_body_matches(captured, n_lights, d):
     assert st["alive"].any() and not st["alive"].all()
 
 
+@pytest.fixture(scope="module")
+def mostly_dead():
+    """mega_body's calls at d = 1..4 of a 32x32 Cornell sample (two area
+    lights, a blue sky) whose lanes are mostly dead: before the trace at
+    d = 1, a numpy-seeded 35% of the lanes lose their alive flag (their ray
+    still traced, so some hit) and another 35% also their ray (tmax -1, a
+    miss); Russian roulette thins the rest."""
+    w = h = 32
+    n = w * h
+    dev = build_device_scene(cornell_box(), "cpu")
+    cfg = tpf.FusedConfig(w, h, 5, dev["n_lights"], ("diffuse_r",))
+    cam = Camera(origin=np.asarray([0.0, 1.0, 0.6], np.float32))
+    sv, usv = tpf.pack_scalars({"camera": cam.device_params("cpu"), "seed": 11,
+                                "bg_color": np.asarray([0.4, 0.5, 0.7], np.float32)}, n, "cpu")
+    rng = np.random.default_rng(17)
+    n_spp = torch.as_tensor(rng.integers(0, 50, n).astype(np.int64))
+    calls = []
+    orig = tpf.mega_body
+
+    def rec(*a):
+        r = orig(*a)
+        calls.append((a, r))
+        return r
+
+    from fredholm_tpu_torch.accel.dense import intersect_closest
+
+    tpf.mega_body = rec
+    try:
+        state, sidx, rays = kernels.raygen(cfg, sv, usv, n_spp)
+        pending = None
+        for d in range(cfg.max_depth):
+            if d == 1:
+                kill = torch.as_tensor(rng.uniform(size=n) < 0.7)
+                state = state.clone()
+                state[tpf.ST_ALIVE][kill] = 0.0
+                rays = rays.clone()
+                rad = (len(cfg.blocks) - 1) * n
+                miss = kill & torch.as_tensor(rng.uniform(size=n) < 0.5)
+                rays[6, rad:][miss] = -1.0
+            hits = intersect_closest(dev["tri_soa"], rays, rays.shape[1])
+            state, rays, pending, _ = kernels.mega(cfg, d, sv, usv, dev, n_spp, sidx, state,
+                                                   rays, pending, tpf.Traced(hits))
+    finally:
+        tpf.mega_body = orig
+    return calls
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_mega_body_matches_on_dead_lanes(mostly_dead, d):
+    """The outputs the kernel's short path must reproduce for lanes that
+    shade nothing (zero contributions, tmax -1 rays with the body's
+    origins and directions, the light ray's pdf, the stale state) are the
+    reference's."""
+    args, got = mostly_dead[d]
+    assert args[1] == d
+    _, jcfg = _cfgs(2)
+    jcfg = jcfg._replace(max_depth=5)
+    want = jpf.mega_body(jcfg, *_to_jax(args[1:]))
+    _compare(got, want)
+    alive_in = args[8]["alive"]
+    shading = alive_in & args[9]["hit"]
+    assert 0.8 < 1.0 - shading.float().mean() < 1.0
+    # dead lanes emit rays with tmax -1 whose origins the body computed
+    st, rays, pend, _ = got
+    dead = ~shading
+    for blk in ("sky", "area", "light", "rad"):
+        assert (rays[blk][2][dead] == -1.0).all(), blk
+    assert (rays["sky"][0].x[dead] != 0.0).any()
+    assert not st["alive"][dead].any()
+
+
 @pytest.mark.parametrize("n_lights", [2, 0])
 def test_final_resolve_body_matches(captured, n_lights):
     (_, args, got), = [c for c in captured[n_lights] if c[0] == "final_resolve_body"]
