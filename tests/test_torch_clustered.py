@@ -51,7 +51,7 @@ from fredholm_tpu_torch.scene import device as tdev
 from fredholm_tpu_torch.scene.procedural import hosek_sweep_scene, terrain
 
 from test_bvh import _sphere_blas
-from test_torch_cache import cached
+from test_torch_cache import cached, cached_all
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores
@@ -123,13 +123,12 @@ def both_tables(request, tmp_path_factory):
         assert len(built) == 1
         return _tables_out(built[0], host["tlas"], host["slot_attrs"])
 
-    bvh, tlas, slots = _tables_in(
-        cached(tmp_path_factory, "numpy_tables_port", _scene_key(scene), port),
-        tbvh.BVH, tcluster.TLAS)
-    j_tables = _tables_in(
-        cached(tmp_path_factory, "numpy_tables_reference", _scene_key(j_scene),
-               lambda: _tables_out(*_reference_numpy_path(j_scene))),
-        types.SimpleNamespace, types.SimpleNamespace)
+    port_z, ref_z = cached_all(tmp_path_factory, [
+        ("numpy_tables_port", _scene_key(scene), port),
+        ("numpy_tables_reference", _scene_key(j_scene),
+         lambda: _tables_out(*_reference_numpy_path(j_scene)))])
+    bvh, tlas, slots = _tables_in(port_z, tbvh.BVH, tcluster.TLAS)
+    j_tables = _tables_in(ref_z, types.SimpleNamespace, types.SimpleNamespace)
     return scene, j_scene, bvh, {"tlas": tlas, "slot_attrs": slots}, j_tables
 
 

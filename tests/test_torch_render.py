@@ -24,7 +24,7 @@ from fredholm_tpu_torch import Renderer, cornell_box
 from fredholm_tpu_torch.scene import device as tdev
 from fredholm_tpu_torch.scene.procedural import sphere_array_test
 
-from test_torch_cache import cached
+from test_torch_cache import cached_all
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores
@@ -103,12 +103,23 @@ def test_dev_from_reference_round_trip(reference_tables):
 
 def _reference_layers(tmp_path_factory, name, setup, **kw):
     """The reference's layers of setup() rendered with kw, once a session."""
-    def render():
-        j = setup()
-        j.render(**kw)
-        return {k: np.asarray(v) for k, v in j.layers.items()}
+    return _both_layers(tmp_path_factory, name, None, setup, **kw)[1]
 
-    return cached(tmp_path_factory, name, sorted(kw.items()), render)
+
+def _both_layers(tmp_path_factory, name, port_setup, setup, **kw):
+    """(port layers as tensors, the reference's as arrays) of the two
+    setups rendered with kw, each once a session (port_setup None: the
+    reference's alone)."""
+    def render(r):
+        r.render(**kw)
+        return {k: np.asarray(v) for k, v in r.layers.items()}
+
+    entries = [(name, sorted(kw.items()), lambda: render(setup()))]
+    if port_setup is not None:
+        entries.append((name + "_port", sorted(kw.items()), lambda: render(port_setup())))
+    out = cached_all(tmp_path_factory, entries)
+    port = {k: torch.as_tensor(v) for k, v in out[1].items()} if port_setup else None
+    return port, out[0]
 
 
 @pytest.fixture(scope="module")
@@ -118,11 +129,9 @@ def both_renders(tmp_path_factory):
         assert j._config(1, 4).use_fused and j._config(1, 4).lobes_on == ("diffuse_r",)
         return j
 
-    want = _reference_layers(tmp_path_factory, "cornell_layers", setup, n_samples=2,
-                             max_depth=4)
-    t = _setup(Renderer, device="cpu")
-    t.render(n_samples=2, max_depth=4)
-    return t.layers, want
+    return _both_layers(tmp_path_factory, "cornell_layers",
+                        lambda: _setup(Renderer, device="cpu"), setup, n_samples=2,
+                        max_depth=4)
 
 
 @pytest.mark.parametrize("key", LAYERS)
@@ -223,28 +232,31 @@ def _metal_row(cls, **kw):
     return r
 
 
+def _metal_row_reference_setup():
+    j = _metal_row(JRenderer)
+    j.use_pallas = False
+    cfg = j._config(1, 3)
+    assert cfg.use_fused and not cfg.use_dense
+    assert cfg.lobes_on == ("metal", "specular", "diffuse_r")
+    return j
+
+
 def _metal_row_reference(tmp_path_factory):
     """The reference's metal_row layers at 2 spp, depth 3, on its plain
     path (use_pallas=False), once a session."""
-    def setup():
-        j = _metal_row(JRenderer)
-        j.use_pallas = False
-        cfg = j._config(1, 3)
-        assert cfg.use_fused and not cfg.use_dense
-        assert cfg.lobes_on == ("metal", "specular", "diffuse_r")
-        return j
-
-    return _reference_layers(tmp_path_factory, "metal_row_layers", setup, n_samples=2,
-                             max_depth=3)
+    return _reference_layers(tmp_path_factory, "metal_row_layers", _metal_row_reference_setup,
+                             n_samples=2, max_depth=3)
 
 
 @pytest.fixture(scope="module")
 def metal_renders(tmp_path_factory):
-    want = _metal_row_reference(tmp_path_factory)
-    t = _metal_row(Renderer, device="cpu")
-    assert "clusters" in t._dev and t._lobes == ("metal", "specular", "diffuse_r")
-    t.render(n_samples=2, max_depth=3)
-    return t.layers, want
+    def port():
+        t = _metal_row(Renderer, device="cpu")
+        assert "clusters" in t._dev and t._lobes == ("metal", "specular", "diffuse_r")
+        return t
+
+    return _both_layers(tmp_path_factory, "metal_row_layers", port,
+                        _metal_row_reference_setup, n_samples=2, max_depth=3)
 
 
 @pytest.mark.parametrize("key", LAYERS)
