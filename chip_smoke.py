@@ -22,7 +22,7 @@ exits non-zero without the final `ok` line:
    (torch.profiler), and per-kernel times vs the plain twins; then
    B1 and mega at each d = 0..4 of metric 1 (CUDA events and CUDA-graph
    replays, each buffer's live share, both terms of each bound) beside
-   PR 5's designs' times
+   the times of the designs they replaced
 6. the kernel table, the card line, then {"ok": true, "device": ...}
    (printed last, after phases 7-9)
 7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
@@ -109,11 +109,11 @@ TRI_OPS = 40
 KEY_OPS = 3
 # B4 and B5 at metric 2's d = 1 blocks in the PR-4 design (PR 4 run 5)
 PR4_MS = {"B4": 0.3564, "B5": 0.3281}
-# B1 and mega at metric 1's d = 0..4 (and mega at metric 2's d = 1) in PR
-# 5's designs, (CUDA graph, CUDA events) ms: tools/shade_steps.py at commit
-# 4f5d229, 3 pairs in turns with the redesign on "NVIDIA H100 80GB HBM3,
-# 700.00 W"
-PR5_MS = {
+# B1 and mega at metric 1's d = 0..4 (and mega at metric 2's d = 1) in the
+# designs their redesign replaced (commit 5297889), (CUDA graph, CUDA
+# events) ms: tools/shade_steps.py at commit 4f5d229, 3 pairs in turns
+# with the redesign on "NVIDIA H100 80GB HBM3, 700.00 W"
+REPLACED_MS = {
     "B1": [(0.0293, 0.0319), (0.0796, 0.0832), (0.0834, 0.0863), (0.0824, 0.0852),
            (0.0797, 0.0838)],
     "mega": [(0.0679, 0.0717), (0.0896, 0.0877), (0.0839, 0.0874), (0.0834, 0.0873),
@@ -761,7 +761,8 @@ def main() -> None:
 
     # B1 and mega at each bounce of metric 1, on the buffers the pipeline
     # makes, in turns: CUDA events around back-to-back wrapper calls, and
-    # CUDA-graph replays (device time alone), beside PR 5's designs' times
+    # CUDA-graph replays (device time alone), beside the replaced designs'
+    # times
     st, si, rays = kernels.raygen(cfg, sv, usv, n_spp)
     pend = None
     per_d = []
@@ -787,14 +788,15 @@ def main() -> None:
         row = {"d": d, "rays": m, "live": live, "lanes": n, "alive": alive}
         for k, b, o in (("B1", b1_bytes, b1_ops), ("mega", mega_bytes, n * STAGE_OPS["mega"])):
             row[k] = {"events_ms": sum(ev[k]) / 2, "graph_ms": sum(gr[k]) / 2,
-                      "pr5_graph_ms": PR5_MS[k][d][0], "pr5_events_ms": PR5_MS[k][d][1],
+                      "replaced_graph_ms": REPLACED_MS[k][d][0],
+                      "replaced_events_ms": REPLACED_MS[k][d][1],
                       "bound_bytes_ms": b / PEAK_BYTES_PER_S * 1e3,
                       "bound_ops_ms": o / PEAK_FP32_PER_S * 1e3,
                       "bound_ops_unfused_ms": o / (PEAK_FP32_PER_S / 2) * 1e3}
             print(f"[5] {k} d={d}: {m if k == 'B1' else n} lanes, live "
                   f"{(live / m if k == 'B1' else alive / n):.4f}; events "
-                  f"{row[k]['events_ms']:.4f} ms, graph {row[k]['graph_ms']:.4f} ms (PR 5: "
-                  f"{PR5_MS[k][d][1]} and {PR5_MS[k][d][0]}); bound bytes "
+                  f"{row[k]['events_ms']:.4f} ms, graph {row[k]['graph_ms']:.4f} ms (replaced "
+                  f"design: {REPLACED_MS[k][d][1]} and {REPLACED_MS[k][d][0]}); bound bytes "
                   f"{row[k]['bound_bytes_ms']:.4f} ms, operations {row[k]['bound_ops_ms']:.4f} "
                   f"ms at 67 TFLOP/s ({row[k]['bound_ops_unfused_ms']:.4f} unfused)")
         per_d.append(row)
