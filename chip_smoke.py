@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (fredholm_tpu_torch) on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(`--against CSRC_DIR`, which may repeat, also times other trees' B1 and
+mega kernels in turns with this tree's: phases 1, 5 and 9)
 
 Phases, each printing before the next; any failure raises and the script
 exits non-zero without the final `ok` line:
@@ -22,7 +24,9 @@ exits non-zero without the final `ok` line:
    (torch.profiler), and per-kernel times vs the plain twins; then
    B1 and mega at each d = 0..4 of metric 1 (CUDA events and CUDA-graph
    replays, each buffer's live share, both terms of each bound) beside
-   the times of the designs they replaced
+   the times of the designs they replaced, and in turns with the kernels
+   of each tree given by --against, their outputs held equal first (also
+   mega at metric 2's d = 1, in phase 9)
 6. the kernel table, the card line, then {"ok": true, "device": ...}
    (printed last, after phases 7-9)
 7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
@@ -169,6 +173,41 @@ def bound(n_bytes: float, n_ops: float):
     t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_o = n_ops / PEAK_FP32_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def mega_bytes(cfg, pf, kernels, d, n, tr, tables, sv, usv):
+    """Bytes k_mega (csrc/shade.cu) moves at bounce d over n lanes, each
+    input read once and each output written once. A lane reads its sample
+    index and n_spp (8 B each) and its state rows; at d = 0 the radiance
+    block's prim, u, v and t; at d > 0 the pending rows its variant reads,
+    the occlusion of each NEE block and of the light block (a bool from an
+    any-hit trace, else the closest hit's prim), the light block's
+    direction (with area lights also its origin, u, v and geometry), and
+    the radiance block's prim, u and v. A hit's geometry is 25 slot-fetch
+    planes at d = 0, 19 after (20 for the light block), or on a dense
+    scene the fused_table, read once like the material, light, Sobol and
+    GGX tables and the scalars. It writes every state, pending and ray
+    row, and at d = 0 the AOVs."""
+    geom = tr.geom is not None
+    lane = 16 + 4 * pf.ST_ROWS
+    if d == 0:
+        lane += 16 + (4 * 25 if geom else 0)
+    else:
+        n_nee = len(cfg.nee_blocks)  # the light block follows them
+        lane += 4 * (3 * n_nee + 5)  # their contributions, tpf, pdf_l, wi_l.y
+        lane += sum(1 if b < tr.n_occ(n) else 4 for b in range(n_nee + 1))
+        lane += 12
+        if cfg.has_area:
+            lane += 12 + 8 + (4 * 20 if geom else 0)
+        lane += 12 + (4 * 19 if geom else 0)
+    written = 4 * (pf.ST_ROWS + pf.PD_ROWS + pf.RAY_ROWS * len(cfg.blocks)
+                   + (pf.AOV_ROWS if d == 0 else 0))
+    dev = sv.device
+    consts = [tables["fused_mat_table"], kernels._sobol_device(dev), sv, usv]
+    consts += [tables["fused_table"]] if not geom else []
+    consts += [tables["light_table"]] if cfg.has_area else []
+    consts += [kernels._lut_device(dev)] if "specular" in cfg.lobes_on else []
+    return n * (lane + written) + nbytes(*consts)
 
 
 def check_dense(name, dense, tri, rays, tag="[2]"):
@@ -403,6 +442,61 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
     return e0.elapsed_time(e1) / (reps * calls)
 
 
+THIS_TREE = "this tree"
+
+
+def tree_turns(tag, build, trees, fns, rounds):
+    """{kernel: {tree: (events ms, graph ms)}}: each of fns ({kernel:
+    wrapper call}) under each tree's library (`trees`: {name: library},
+    THIS_TREE's first), timed in `rounds` turns whose order reverses each
+    turn: CUDA events around 10 back-to-back calls, and CUDA-graph replays
+    (device time alone); means of the turns. Before the turns each other
+    tree's outputs are held equal to this tree's (NaN equal to NaN)."""
+    import torch
+
+    def under(handle, fn):
+        def call():
+            saved, build._lib = build._lib, handle
+            try:
+                return fn()
+            finally:
+                build._lib = saved
+        return call
+
+    def planes(x):
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in planes(v)]
+        if isinstance(x, (tuple, list)):
+            return [t for v in x for t in planes(v)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    calls = {(k, t): under(h, fn) for k, fn in fns.items() for t, h in trees.items()}
+    for k in fns:
+        want = planes(calls[(k, THIS_TREE)]())
+        for t in list(trees)[1:]:
+            got = planes(calls[(k, t)]())
+            for x, y in zip(got, want):
+                same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
+                    if x.is_floating_point() else x == y
+                if not bool(same.all()):
+                    raise AssertionError(f"{tag} {k}: tree {t} differs from this tree on "
+                                         f"{int((~same).sum())} values")
+    ev = {key: [] for key in calls}
+    gr = {key: [] for key in calls}
+    for rnd in range(rounds):
+        for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
+            ev[key].append(cuda_ms(calls[key], 10))
+            gr[key].append(graph_ms(calls[key]))
+    out = {k: {} for k in fns}
+    for (k, t) in calls:
+        out[k][t] = (sum(ev[(k, t)]) / rounds, sum(gr[(k, t)]) / rounds)
+        if len(trees) > 1:
+            print(f"{tag} {k} {t}: events {out[k][t][0]:.5f} ms, graph {out[k][t][1]:.5f} ms, "
+                  f"{out[k][t][1] / out[k][THIS_TREE][1]:.3f}x this tree's (turns, graph: "
+                  f"{', '.join(f'{x:.5f}' for x in gr[(k, t)])})")
+    return out
+
+
 def score_golden(tag, name, img, launches, want_shape):
     from fredholm_tpu_torch.utils.ssim import ssim
 
@@ -558,7 +652,22 @@ def first_nee_rays(r, wavefront):
     return seen[0]
 
 
+def parse_args(argv):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU (see the "
+                                "module docstring); no arguments needed.")
+    p.add_argument("--against", action="append", default=[], metavar="CSRC_DIR",
+                   help="also build the kernel sources in CSRC_DIR (another tree's csrc/, "
+                   "e.g. an unpacked `git archive <commit> fredholm_tpu_torch/csrc`) and "
+                   "time its B1 and mega in turns with this tree's, on the same inputs, "
+                   "at each bounce of metric 1 ([5]) and at metric 2's d = 1 ([9]), "
+                   "after holding their outputs equal; may repeat")
+    return p.parse_args(argv)
+
+
 def main() -> None:
+    args = parse_args(sys.argv[1:])
     t_start = time.perf_counter()
     # ---- 0: card
     card = card_line()
@@ -600,6 +709,16 @@ def main() -> None:
           f"(parallel nvcc + link {_build.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
         print(f"[1] ptxas {name}: {info}")
+    trees = {THIS_TREE: _build.lib()}
+    for csrc in args.against:
+        info = {}
+        trees[csrc] = _build.load(_build.build(os.path.abspath(csrc), info))
+        for name, regs in info.get("ptxas", {}).items():
+            if "dense_closest" in name or "k_mega" in name:
+                print(f"[1] ptxas {csrc} {name}: {regs}")
+    # turns of each timing against the other trees: their differences are
+    # a few percent, so more turns than for this tree alone
+    rounds = 6 if len(trees) > 1 else 2
     phase_done(1, t0)
 
     results = {}
@@ -738,8 +857,8 @@ def main() -> None:
     work1 = {
         "dense_closest": (4 * rays.shape[1] + 24 * live + nbytes(tri) + 16 * rays.shape[1],
                           live * tri.shape[1] * TRI_OPS),
-        "mega": (nbytes(st, si, n_spp, rays, pend, h4.hits, scene_dev["fused_table"])
-                 + nbytes(st, pend, rays), n * STAGE_OPS["mega"]),
+        "mega": (mega_bytes(cfg, pf, kernels, 1, n, h4, scene_dev, sv, usv),
+                 n * STAGE_OPS["mega"]),
     }
     bounds1 = {
         "dense_closest": bound(*work1["dense_closest"]),
@@ -760,9 +879,9 @@ def main() -> None:
               f"{bounds1[k][1]}")
 
     # B1 and mega at each bounce of metric 1, on the buffers the pipeline
-    # makes, in turns: CUDA events around back-to-back wrapper calls, and
-    # CUDA-graph replays (device time alone), beside the replaced designs'
-    # times
+    # makes, in turns (with the trees given by --against): CUDA events
+    # around back-to-back wrapper calls, and CUDA-graph replays (device
+    # time alone), beside the replaced designs' times
     st, si, rays = kernels.raygen(cfg, sv, usv, n_spp)
     pend = None
     per_d = []
@@ -771,23 +890,18 @@ def main() -> None:
         live = int((rays[6] > 0).sum())
         hd = pf.Traced(dense.intersect_closest(tri, rays, m))
         alive = int((st[pf.ST_ALIVE] != 0).sum())
-        fns = {"B1": lambda r=rays, m=m: dense.intersect_closest(tri, r, m),
-               "mega": lambda d=d, st=st, r=rays, p=pend, h=hd: kernels.mega(
-                   cfg, d, sv, usv, scene_dev, n_spp, si, st, r, p, h)}
-        ev = {k: [] for k in fns}
-        gr = {k: [] for k in fns}
-        for rnd in range(2):
-            for k in (list(fns) if rnd == 0 else list(fns)[::-1]):
-                ev[k].append(cuda_ms(fns[k], 10))
-                gr[k].append(graph_ms(fns[k]))
+        tt = tree_turns(f"[5] d={d}", _build, trees, {
+            "B1": lambda r=rays, m=m: dense.intersect_closest(tri, r, m),
+            "mega": lambda d=d, st=st, r=rays, p=pend, h=hd: kernels.mega(
+                cfg, d, sv, usv, scene_dev, n_spp, si, st, r, p, h)}, rounds)
         out = kernels.mega(cfg, d, sv, usv, scene_dev, n_spp, si, st, rays, pend, hd)
         b1_bytes = 4 * m + 24 * live + 16 * m
         b1_ops = live * tri.shape[1] * TRI_OPS
-        mega_bytes = nbytes(st, si, n_spp, rays, pend, hd.hits, scene_dev["fused_table"]) \
-            + nbytes(*out)
         row = {"d": d, "rays": m, "live": live, "lanes": n, "alive": alive}
-        for k, b, o in (("B1", b1_bytes, b1_ops), ("mega", mega_bytes, n * STAGE_OPS["mega"])):
-            row[k] = {"events_ms": sum(ev[k]) / 2, "graph_ms": sum(gr[k]) / 2,
+        for k, b, o in (("B1", b1_bytes, b1_ops),
+                        ("mega", mega_bytes(cfg, pf, kernels, d, n, hd, scene_dev, sv, usv),
+                         n * STAGE_OPS["mega"])):
+            row[k] = {"events_ms": tt[k][THIS_TREE][0], "graph_ms": tt[k][THIS_TREE][1],
                       "replaced_graph_ms": REPLACED_MS[k][d][0],
                       "replaced_events_ms": REPLACED_MS[k][d][1],
                       "bound_bytes_ms": b / PEAK_BYTES_PER_S * 1e3,
@@ -799,6 +913,9 @@ def main() -> None:
                   f"design: {REPLACED_MS[k][d][1]} and {REPLACED_MS[k][d][0]}); bound bytes "
                   f"{row[k]['bound_bytes_ms']:.4f} ms, operations {row[k]['bound_ops_ms']:.4f} "
                   f"ms at 67 TFLOP/s ({row[k]['bound_ops_unfused_ms']:.4f} unfused)")
+            if len(trees) > 1:
+                row[k]["against"] = {t: {"events_ms": e, "graph_ms": g}
+                                     for t, (e, g) in tt[k].items() if t != THIS_TREE}
         per_d.append(row)
         st, rays, pend, _ = out
     print(json.dumps({"metric 1 per bounce": per_d, "card": card}))
@@ -982,6 +1099,9 @@ def main() -> None:
         "final_resolve": (lambda: kernels.final(cfg2, sv2, sweep_dev, st, rays, pend, trf),
                           lambda: pf.final_twin(cfg2, sv2, sweep_dev, st, rays, pend, trf)),
     }, reps)
+    if len(trees) > 1:
+        tree_turns("[9] d=1", _build, trees, {"mega": lambda: kernels.mega(
+            cfg2, 1, sv2, usv2, sweep_dev, n_spp2, si, st, rays, pend, tr1)}, rounds)
     # the work these inputs need: the twins count the kernels' slab,
     # triangle and key-bound tests and the table entries they read (each
     # once); a dead lane reads only its tmax, a live one its 7 floats.
@@ -1023,9 +1143,8 @@ def main() -> None:
                             0),
         "raygen": bound(nbytes(n_spp2) + ns * (4 * pf.ST_ROWS + 8 + 4 * pf.RAY_ROWS),
                         ns * STAGE_OPS["raygen"]),
-        "mega": bound(nbytes(st, si, n_spp2, rays, pend, tr1.hits["t"], tr1.hits["prim"],
-                             tr1.hits["u"], tr1.hits["v"], tr1.occ, tr1.geom)
-                      + nbytes(st, pend, rays), ns * STAGE_OPS["mega"]),
+        "mega": bound(mega_bytes(cfg2, pf, kernels, 1, ns, tr1, sweep_dev, sv2, usv2),
+                      ns * STAGE_OPS["mega"]),
         "final_resolve": bound(nbytes(st, pend, rays[:, :(nb2 - 1) * ns], trf.occ) + 12 * ns,
                                ns * STAGE_OPS["final_resolve"]),
     }

@@ -80,10 +80,10 @@ def _parse_ptxas(log: str) -> dict:
 
 
 def build(csrc_dir: str = CSRC_DIR, info: dict = BUILD_INFO) -> str:
-    """Compile the kernels of csrc_dir (the package's own by default; a
-    tool may build another tree's to time it beside these) if no library
-    for these sources exists; returns the library path and records the
-    build in `info`. Raises on any compiler error."""
+    """Compile the kernels of csrc_dir (the package's own by default;
+    chip_smoke.py --against builds another tree's to time it beside these)
+    if no library for these sources exists; returns the library path and
+    records the build in `info`. Raises on any compiler error."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"libfh_kernels_{_source_hash(csrc_dir)}.so")
     if os.path.exists(lib_path):
@@ -164,33 +164,38 @@ def lib():
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(build())
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        handle.fh_dense_closest.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
-        handle.fh_dense_closest.restype = i
-        handle.fh_dense_any.argtypes = [vp, ll, i, vp, i, vp, vp]
-        handle.fh_dense_any.restype = i
-        for name in ("fh_clustered_closest", "fh_clustered_any"):
-            fn = getattr(handle, name)
-            fn.argtypes = [vp, ll, i, vp, vp, vp, i, i, vp, vp, vp, i, vp, vp, vp, i, i,
-                           vp, vp, vp, vp, vp, vp, vp, vp]
-            fn.restype = i
-        for name in ("fh_resident_closest", "fh_resident_any"):
-            fn = getattr(handle, name)
-            fn.argtypes = [vp, ll, i, vp, vp, i, i, vp, ll, vp, vp, vp, vp, vp, vp]
-            fn.restype = i
-        handle.fh_clustered_stage_bytes.argtypes = [i, i]
-        handle.fh_clustered_stage_bytes.restype = ll
-        handle.fh_probe_fma.argtypes = [vp, vp, ll, i, ctypes.c_float, ctypes.c_float, vp]
-        handle.fh_probe_fma.restype = i
-        handle.fh_slot_fetch.argtypes = [vp, i, vp, ll, vp, vp]
-        handle.fh_slot_fetch.restype = i
-        for name in ("fh_raygen", "fh_mega", "fh_final"):
-            fn = getattr(handle, name)
-            fn.argtypes = [ctypes.POINTER(ShadeArgs), vp]
-            fn.restype = i
-        _lib = handle
+        _lib = load(build())
     return _lib
+
+
+def load(lib_path: str):
+    """Load a kernel library built by `build` and declare its entry points."""
+    handle = ctypes.CDLL(lib_path)
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    handle.fh_dense_closest.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
+    handle.fh_dense_closest.restype = i
+    handle.fh_dense_any.argtypes = [vp, ll, i, vp, i, vp, vp]
+    handle.fh_dense_any.restype = i
+    for name in ("fh_clustered_closest", "fh_clustered_any"):
+        fn = getattr(handle, name)
+        fn.argtypes = [vp, ll, i, vp, vp, vp, i, i, vp, vp, vp, i, vp, vp, vp, i, i,
+                       vp, vp, vp, vp, vp, vp, vp, vp]
+        fn.restype = i
+    for name in ("fh_resident_closest", "fh_resident_any"):
+        fn = getattr(handle, name)
+        fn.argtypes = [vp, ll, i, vp, vp, i, i, vp, ll, vp, vp, vp, vp, vp, vp]
+        fn.restype = i
+    handle.fh_clustered_stage_bytes.argtypes = [i, i]
+    handle.fh_clustered_stage_bytes.restype = ll
+    handle.fh_probe_fma.argtypes = [vp, vp, ll, i, ctypes.c_float, ctypes.c_float, vp]
+    handle.fh_probe_fma.restype = i
+    handle.fh_slot_fetch.argtypes = [vp, i, vp, ll, vp, vp]
+    handle.fh_slot_fetch.restype = i
+    for name in ("fh_raygen", "fh_mega", "fh_final"):
+        fn = getattr(handle, name)
+        fn.argtypes = [ctypes.POINTER(ShadeArgs), vp]
+        fn.restype = i
+    return handle
 
 
 def check(err: int, what: str) -> None:

@@ -17,7 +17,7 @@
 // its own, and the operation term at the unfused rate (half) is twice that.
 //
 // The design, for what held the first one (one thread a ray, a static 36 KB
-// SoA table; measured with tools/shade_steps.py, PERF.md):
+// SoA table; each step measured in turns against it, PERF.md):
 // - Live rays are compacted inside each block (a warp ballot, prefix counts
 //   over the block's warps, a shared list of live lanes), so the warps that
 //   sweep hold live rays only: a block's sweep costs its live warps, not

@@ -165,12 +165,17 @@ def raygen(cfg: pf.FusedConfig, sv, usv, n_spp):
     return state, sample_idx, rays
 
 
-def mega_launch(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
-                sample_idx, state, rays, pending, tr: pf.Traced):
-    """The checked launch arguments of the mega kernel on CUDA tensors and
-    the outputs it writes: (ShadeArgs, (state, rays, pending, aov or
-    None)). `mega` launches it; tools/shade_steps.py launches another
-    tree's kernel with it."""
+def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
+         sample_idx, state, rays, pending, tr: pf.Traced):
+    """Resolve bounce d-1, shade bounce d, emit bounce d's rays and RR.
+
+    rays/tr: the previous ray buffer (one block at d = 0) and its traces.
+    Returns (state, rays [7, B*N], pending [14, N], aov [12, N] at d = 0
+    else None)."""
+    if sv.device.type == "cpu":
+        _build.LAUNCHES["mega_twin"] += 1
+        return pf.mega_twin(cfg, d, sv, usv, tables, n_spp, sample_idx,
+                            state, rays, pending, tr)
     n = cfg.width * cfg.height
     dev = sv.device
     nb_in = 1 if d == 0 else len(cfg.blocks)
@@ -192,24 +197,8 @@ def mega_launch(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     a = _args(cfg, sv, usv, n_spp, state_out=state_out.data_ptr(),
               rays_out=rays_out.data_ptr(), pending_out=pending_out.data_ptr(),
               aov_out=aov.data_ptr() if aov is not None else None, **ptrs)
-    return a, (state_out, rays_out, pending_out, aov)
-
-
-def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
-         sample_idx, state, rays, pending, tr: pf.Traced):
-    """Resolve bounce d-1, shade bounce d, emit bounce d's rays and RR.
-
-    rays/tr: the previous ray buffer (one block at d = 0) and its traces.
-    Returns (state, rays [7, B*N], pending [14, N], aov [12, N] at d = 0
-    else None)."""
-    if sv.device.type == "cpu":
-        _build.LAUNCHES["mega_twin"] += 1
-        return pf.mega_twin(cfg, d, sv, usv, tables, n_spp, sample_idx,
-                            state, rays, pending, tr)
-    a, out = mega_launch(cfg, d, sv, usv, tables, n_spp, sample_idx, state, rays,
-                         pending, tr)
-    _launch("mega", _build.lib().fh_mega, a, sv.device)
-    return out
+    _launch("mega", _build.lib().fh_mega, a, dev)
+    return state_out, rays_out, pending_out, aov
 
 
 def final(cfg: pf.FusedConfig, sv, tables: Dict, state, rays, pending, tr: pf.Traced):

@@ -10,8 +10,8 @@ a*b+c into FMAs, while the twin (like the CUDA kernel, built with
   triangle edge in barycentrics (rays aimed at shared edges land there);
 - prim is equal except there, or where two candidate t lie within 1e-6;
 - t agrees to 5e-5 relative (1e-6 absolute near 0), u and v to 5e-5.
-The CUDA kernel and this twin round alike; chip_smoke.py holds them to
-1e-5 on the card, where they agree exactly.
+The CUDA kernel and this twin round alike; chip_smoke.py holds them
+bit-equal on the card (t, u, v and prim).
 """
 
 import jax.numpy as jnp
