@@ -3,7 +3,10 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (`--against CSRC_DIR`, which may repeat, also times other trees' B1 and
-mega kernels in turns with this tree's: phases 1, 5 and 9)
+mega kernels in turns with this tree's: phases 1, 5 and 9, and in phase
+20 mega's full variant of the trees that have one. A tree's
+kernels take this tree's launch-argument struct, csrc/common.cuh
+`ShadeArgs`: an older tree's copy needs its struct brought level first)
 
 Phases, each printing before the next; any failure raises and the script
 exits non-zero without the final `ok` line:
@@ -28,7 +31,7 @@ exits non-zero without the final `ok` line:
    of each tree given by --against, their outputs held equal first (also
    mega at metric 2's d = 1, in phase 9)
 6. the kernel table, the card line, then {"ok": true, "device": ...}
-   (printed last, after phases 7-9)
+   (printed last, after phases 7-20)
 7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
    through Renderer(device="cuda"); the clustered closest-hit / any-hit
    kernels bit-equal to their twins in both kept variants (top levels
@@ -76,6 +79,25 @@ exits non-zero without the final `ok` line:
     rates
 17. wavefront compaction A/B: metric 2 with the gate off and on, each
     with FREDHOLM_COMPACT 0 and 1, in turns 0, 1, 1, 0
+18. mega's full variant (all seven lobes: coat, transmission, sheen and
+    diffuse_t beside metal, specular and diffuse_r) vs its twins: its
+    ptxas line, then compare_stages at each d of four goldens' setups
+    (tools/gen_goldens.py) at 512x512 with the golden's scene, camera,
+    sky, sun and depth: clear_coat (coat), sheen (sheen, sun block),
+    transmission_rough (transmission, depth 6, lanes shading from inside
+    the spheres counted) and diffuse_transmission (diffuse_t, sun)
+19. the nine goldens the port gained (furnace, thinlens, metal_rough_grid
+    and the six lobe goldens: clear_coat, sheen, transmission,
+    transmission_rough, spec_transmission, diffuse_transmission) through
+    Renderer(device="cuda"), scored against tests/golden/*.npz; the lobe
+    goldens launch only the full variant, the others never; furnace's
+    image mean within 1% of 0.5
+20. the lobe metrics: the six lobe goldens' setups at 512x512 and their
+    depth, 8 x render(1) after 2 warm-up spp, with launch counts (and for
+    spec_transmission the profiler's busy share and top kernels); then the
+    full variant at transmission_rough's d = 1 vs its twin (CUDA events
+    and a graph replay) beside both terms of its bound, and in turns with
+    the full variant of each --against tree that has one
 """
 
 from __future__ import annotations
@@ -125,8 +147,12 @@ REPLACED_MS = {
     "mega metric 2 d=1": (0.0885, 0.0915),
 }
 # float operations a lane of each shading stage takes (counted from the
-# bodies, hashing included; all three stages are bound by their bytes)
-STAGE_OPS = {"raygen": 300, "mega": 1500, "final_resolve": 150}
+# bodies, hashing included, a transcendental as one; all are bound by their
+# bytes). mega_full: mega's 1500, plus ~470 in each of its three BSDF
+# evaluations (the coat, transmission and sheen lobes), ~140 in the setup
+# (their albedo fetches, the seven-lobe layer chain) and ~200 in the two
+# samplers
+STAGE_OPS = {"raygen": 300, "mega": 1500, "mega_full": 3300, "final_resolve": 150}
 
 
 def card_line() -> str:
@@ -185,9 +211,9 @@ def mega_bytes(cfg, pf, kernels, d, n, tr, tables, sv, usv):
     direction (with area lights also its origin, u, v and geometry), and
     the radiance block's prim, u and v. A hit's geometry is 25 slot-fetch
     planes at d = 0, 19 after (20 for the light block), or on a dense
-    scene the fused_table, read once like the material, light, Sobol and
-    GGX tables and the scalars. It writes every state, pending and ray
-    row, and at d = 0 the AOVs."""
+    scene the fused_table, read once like the material, light, Sobol,
+    GGX reflection (coat, specular) and sheen tables and the scalars. It
+    writes every state, pending and ray row, and at d = 0 the AOVs."""
     geom = tr.geom is not None
     lane = 16 + 4 * pf.ST_ROWS
     if d == 0:
@@ -206,7 +232,8 @@ def mega_bytes(cfg, pf, kernels, d, n, tr, tables, sv, usv):
     consts = [tables["fused_mat_table"], kernels._sobol_device(dev), sv, usv]
     consts += [tables["fused_table"]] if not geom else []
     consts += [tables["light_table"]] if cfg.has_area else []
-    consts += [kernels._lut_device(dev)] if "specular" in cfg.lobes_on else []
+    consts += [kernels._lut_device(dev)] if {"coat", "specular"} & set(cfg.lobes_on) else []
+    consts += [kernels._sheen_lut_device(dev)] if "sheen" in cfg.lobes_on else []
     return n * (lane + written) + nbytes(*consts)
 
 
@@ -652,6 +679,105 @@ def first_nee_rays(r, wavefront):
     return seen[0]
 
 
+# The goldens of tools/gen_goldens.py that phases 18-20 render: the six
+# whose scenes need mega's full variant (a coat, transmission, sheen or
+# diffuse transmission), and three whose procedural scenes the port gained
+# with them; [18] holds four of them at the stage level, one a lobe.
+LOBE_GOLDENS = ("clear_coat", "sheen", "transmission", "transmission_rough",
+                "spec_transmission", "diffuse_transmission")
+NEW_GOLDENS = ("furnace", "thinlens", "metal_rough_grid") + LOBE_GOLDENS
+STAGE_GOLDENS = {"clear_coat": "coat", "sheen": "sheen", "transmission_rough": "transmission",
+                 "diffuse_transmission": "diffuse_t"}
+
+
+def golden_setup(name, size=None):
+    """(Renderer on the card, render kwargs) of golden `name` as
+    tools/gen_goldens.py sets it up: its scene, camera, sky and sun, at
+    the golden's size or at size x size."""
+    import fredholm_tpu_torch as ft
+    from fredholm_tpu_torch.scene.procedural import (
+        furnace_sphere,
+        sphere_array_test,
+        sphere_grid_test,
+    )
+    from fredholm_tpu_torch.scene.types import Material as M
+
+    at = (0.0, 0.6, 1.8)
+    # name: (golden size, scene, camera origin, sun (le, direction, angle),
+    #        constant sky, spp, depth)
+    table = {
+        "furnace": (48, lambda: furnace_sphere(M(specular=0.0)), (0.0, 0.0, 2.5), None,
+                    (0.5, 0.5, 0.5), 16, 8),
+        "thinlens": (64, lambda: sphere_array_test("metalness", [0.0, 0.0, 0.0], spacing=1.2),
+                     (0.0, 0.7, 2.4), None, (0.8, 0.7, 0.5), 24, 3),
+        "metal_rough_grid": (64, lambda: sphere_grid_test(
+            "metalness", [0.0, 0.5, 1.0], "specular_roughness", [0.1, 0.6], spacing=1.0),
+            (0.0, 1.2, 3.4), None, (0.5, 0.6, 0.7), 12, 3),
+        "clear_coat": (48, lambda: sphere_array_test(
+            "coat_roughness", [0.05, 0.6], base=M(coat=1.0, base_color=(0.6, 0.1, 0.1)),
+            spacing=1.05), at, None, (0.7, 0.75, 0.8), 12, 4),
+        "sheen": (48, lambda: sphere_array_test(
+            "sheen", [0.3, 1.0], base=M(base_color=(0.2, 0.2, 0.5), sheen_color=(0.9, 0.9, 0.9)),
+            spacing=1.05), at, ((3, 3, 3), (0.3, 1.0, 0.4), 1.0), (0.1, 0.1, 0.12), 12, 3),
+        "transmission": (48, lambda: sphere_array_test(
+            "transmission", [1.0], base=M(specular_roughness=0.05, diffuse=0.0)), at, None,
+            (0.9, 0.6, 0.3), 16, 6),
+        "transmission_rough": (48, lambda: sphere_array_test(
+            "specular_roughness", [0.05, 0.5], base=M(transmission=1.0, diffuse=0.0),
+            spacing=1.05), at, None, (0.9, 0.6, 0.3), 16, 6),
+        "spec_transmission": (48, lambda: sphere_array_test(
+            "transmission", [0.4, 1.0], base=M(specular=1.0, specular_roughness=0.05, diffuse=0.0),
+            spacing=1.05), at, None, (0.3, 0.6, 0.9), 16, 6),
+        "diffuse_transmission": (48, lambda: sphere_array_test(
+            "subsurface", [0.0, 1.0], base=M(thin_walled=1.0), spacing=1.05), at,
+            ((4, 4, 4), (-0.2, 1.0, -0.5), 2.0), (0.05, 0.05, 0.05), 16, 4),
+    }
+    g_size, scene, origin, sun, bg, spp, depth = table[name]
+    w = size or g_size
+    r = ft.Renderer(w, w, device="cuda")
+    r.set_scene(scene())
+    r.camera.origin = np.asarray(origin, np.float32)
+    if name == "thinlens":
+        r.camera.f_number = 1.5
+        r.camera.focus = 2.4
+    r.camera._update_transform()
+    if sun is not None:
+        r.set_directional_light(sun[0], sun[1], angle=sun[2])
+    r.set_bg_color(bg)
+    return r, dict(n_samples=spp, max_depth=depth)
+
+
+def stage_tracer(pf, cfg, dev_, n, inside=None):
+    """trace_fn of compare_stages for a scene: a stage's traces as the
+    pipeline makes them. With `inside` (a list), each bounce's count of
+    lanes whose ray is live and hits a face from its back (the shading
+    sees `entering` false) is appended to it."""
+    import torch
+
+    nb = len(cfg.blocks)
+    n_occ = len(cfg.occ_blocks("clusters" in dev_))
+
+    def fn(rays, d):
+        if d == 0:
+            tr = pf.trace_stage(cfg, dev_, rays, n, 1, 0)
+        else:
+            tr = pf.trace_stage(cfg, dev_, rays, n, nb if d > 0 else nb - 1, n_occ)
+        if inside is not None and d >= 0:
+            hit = tr.hits["prim"][-n:] >= 0
+            if tr.geom is not None:
+                g = tr.geom[:, -n:]
+            else:
+                g = dev_["fused_table"][tr.hits["prim"][-n:].clamp(min=0).long()].T
+            e1 = g[3:6] - g[0:3]
+            e2 = g[6:9] - g[0:3]
+            ng = torch.linalg.cross(e1, e2, dim=0)
+            back = (rays[3:6, -n:] * ng).sum(0) >= 0.0
+            inside.append(int(((rays[6, -n:] > 0) & hit & back).sum()))
+        return tr
+
+    return fn
+
+
 def parse_args(argv):
     import argparse
 
@@ -662,7 +788,8 @@ def parse_args(argv):
                    "e.g. an unpacked `git archive <commit> fredholm_tpu_torch/csrc`) and "
                    "time its B1 and mega in turns with this tree's, on the same inputs, "
                    "at each bounce of metric 1 ([5]) and at metric 2's d = 1 ([9]), "
-                   "after holding their outputs equal; may repeat")
+                   "and mega's full variant at transmission_rough's d = 1 ([20]) where "
+                   "the tree has one, after holding their outputs equal; may repeat")
     return p.parse_args(argv)
 
 
@@ -710,12 +837,15 @@ def main() -> None:
     for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
         print(f"[1] ptxas {name}: {info}")
     trees = {THIS_TREE: _build.lib()}
+    full_trees = [THIS_TREE]  # the trees with mega's full variant
     for csrc in args.against:
         info = {}
         trees[csrc] = _build.load(_build.build(os.path.abspath(csrc), info))
         for name, regs in info.get("ptxas", {}).items():
             if "dense_closest" in name or "k_mega" in name:
                 print(f"[1] ptxas {csrc} {name}: {regs}")
+        if any("k_mega_full" in name for name in info.get("ptxas", {})):
+            full_trees.append(csrc)
     # turns of each timing against the other trees: their differences are
     # a few percent, so more turns than for this tree alone
     rounds = 6 if len(trees) > 1 else 2
@@ -1544,6 +1674,125 @@ def main() -> None:
         f"{k} {v[1] / v[0]:.3f}" for k, v in times17.items()))
     phase_done(17, t0)
 
+    # ---- 18: mega's full variant vs its twins on the four lobe setups
+    t0 = time.perf_counter()
+    full_ptxas = {k: v for k, v in _build.BUILD_INFO.get("ptxas", {}).items()
+                  if "k_mega_full" in k}
+    print(f"[18] ptxas of the full mega variant: {full_ptxas}")
+    if not full_ptxas:
+        raise AssertionError("no k_mega_full among the built kernels")
+    full_err = []
+    for name, lobe in STAGE_GOLDENS.items():
+        r, kw = golden_setup(name, 512)
+        p18 = r._params(kw["max_depth"])
+        cfg18 = pf.make_config(r._dev, p18)
+        n18 = r.width * r.height
+        if lobe not in cfg18.lobes_on or kernels.mega_variant(cfg18) != "full":
+            raise AssertionError(f"[18] {name}: lobes {cfg18.lobes_on} do not take the full "
+                                 "variant")
+        sv18, usv18 = pf.pack_scalars(p18, n18, dev)
+        n_spp18 = torch.full((n18,), 3, dtype=torch.int64, device=dev)
+        inside = []
+        res18 = compare_stages(f"[18] {name}", cfg18, pf, kernels, sv18, usv18, r._dev, n_spp18,
+                               stage_tracer(pf, cfg18, r._dev, n18, inside),
+                               depths=range(cfg18.max_depth))
+        print(f"[18] {name} ({lobe}, lobes {cfg18.lobes_on}, {r.width}x{r.height}, depth "
+              f"{cfg18.max_depth}): live lanes hitting a face from its back, per bounce {inside}")
+        if name == "transmission_rough" and not sum(inside[1:]):
+            raise AssertionError("[18] transmission_rough: no lane shaded from inside a sphere")
+        full_err.append(res18["mega"])
+        for k in ("raygen", "final_resolve"):
+            results[k] = max(results[k], res18[k])
+    results["mega_full"] = max(full_err)
+    phase_done(18, t0)
+
+    # ---- 19: the nine goldens the port gained, through the user entry point
+    t0 = time.perf_counter()
+    for name in NEW_GOLDENS:
+        r, kw = golden_setup(name)
+        if not r._params(kw["max_depth"])["use_fused"]:
+            raise AssertionError(f"[19] golden {name} did not route to the fused pipeline")
+        _build.LAUNCHES.clear()
+        r.render(**kw)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        img = r.get_layer("beauty")
+        score_golden("[19]", name, img, counts, (r.height, r.width, 3))
+        want_full = kw["n_samples"] * kw["max_depth"] if name in LOBE_GOLDENS else 0
+        if counts.get("mega", 0) <= 0 or counts.get("mega_full", 0) != want_full:
+            raise AssertionError(f"[19] golden {name}: mega launches {counts}, the full "
+                                 f"variant expected {want_full} times")
+        if name == "furnace":
+            # the bar tests/test_golden.py:40-46 holds the committed golden to
+            mean = float(np.clip(img, 0.0, 4.0).mean())
+            print(f"[19] furnace: image mean {mean:.6f}, {abs(mean - 0.5) / 0.5:.6f} from 0.5")
+            if abs(mean - 0.5) > 0.01 * 0.5:
+                raise AssertionError(f"[19] furnace mean {mean} not within 1% of 0.5")
+    phase_done(19, t0)
+
+    # ---- 20: the lobe metrics: the six lobe goldens' setups at 512x512
+    t0 = time.perf_counter()
+    spp20 = 8
+    launches20 = {}
+    for name in LOBE_GOLDENS:
+        r, kw = golden_setup(name, 512)
+        d20 = kw["max_depth"]
+        pv20, seconds20, l20 = timed_metric(r, spp20, d20, _build)
+        beauty20 = r.get_layer("beauty")
+        if not (np.isfinite(beauty20).all() and 0.001 < beauty20.mean() < 100.0):
+            raise AssertionError(f"[20] {name} image is off: mean {beauty20.mean()}")
+        twins20 = {k: v for k, v in l20.items() if k.endswith("_twin") and v}
+        if twins20 or l20.get("mega_full", 0) != d20 * spp20:
+            raise AssertionError(f"[20] {name} launches {l20}: expected the full variant "
+                                 f"{d20 * spp20} times and no twins")
+        launches20[name] = l20
+        print(json.dumps({
+            "metric": f"{name}_512x512_{spp20}spp_depth{d20}",
+            "mpath_vertices_per_s": pv20 / seconds20 / 1e6,
+            "path_vertices": pv20,
+            "seconds": seconds20,
+            "beauty_mean": float(beauty20.mean()),
+            "card": card,
+            "launches": l20,
+        }))
+        if name == "spec_transmission":
+            profile_busy("[20]", "spec_transmission at 512x512", r, d20, start_tracer=False)
+
+    # the full variant at transmission_rough's d = 1, against its twin and
+    # beside its bound: CUDA events around the wrapper, and graph replays
+    r, kw = golden_setup("transmission_rough", 512)
+    p20 = r._params(kw["max_depth"])
+    cfg20 = pf.make_config(r._dev, p20)
+    n20 = r.width * r.height
+    sv20, usv20 = pf.pack_scalars(p20, n20, dev)
+    n_spp20 = torch.full((n20,), 3, dtype=torch.int64, device=dev)
+    tracer20 = stage_tracer(pf, cfg20, r._dev, n20)
+    st, si, rays = kernels.raygen(cfg20, sv20, usv20, n_spp20)
+    st, rays, pend, _ = kernels.mega(cfg20, 0, sv20, usv20, r._dev, n_spp20, si, st, rays, None,
+                                     tracer20(rays, 0))
+    tr20 = tracer20(rays, 1)
+
+    def full20():
+        return kernels.mega(cfg20, 1, sv20, usv20, r._dev, n_spp20, si, st, rays, pend, tr20)
+
+    times20 = time_pairs("[20]", {"mega_full": (full20, lambda: pf.mega_twin(
+        cfg20, 1, sv20, usv20, r._dev, n_spp20, si, st, rays, pend, tr20))}, {})
+    graph20 = graph_ms(full20)
+    if len(full_trees) > 1:
+        tree_turns("[20] transmission_rough d=1", _build, {t: trees[t] for t in full_trees},
+                   {"mega_full": full20}, rounds)
+    work20 = (mega_bytes(cfg20, pf, kernels, 1, n20, tr20, r._dev, sv20, usv20),
+              n20 * STAGE_OPS["mega_full"])
+    bounds20 = {"mega_full": bound(*work20)}
+    print(f"[20] mega_full at transmission_rough's d = 1: {n20} lanes, alive "
+          f"{int((st[pf.ST_ALIVE] != 0).sum())}; events {times20['mega_full'][0]:.4f} ms, graph "
+          f"{graph20:.4f} ms, twin {times20['mega_full'][1]:.4f} ms; bound bytes "
+          f"{work20[0] / PEAK_BYTES_PER_S * 1e3:.4f} ms, operations "
+          f"{work20[1] / PEAK_FP32_PER_S * 1e3:.4f} ms at 67 TFLOP/s "
+          f"({work20[1] / (PEAK_FP32_PER_S / 2) * 1e3:.4f} unfused); the row uses "
+          f"{bounds20['mega_full'][1]}")
+    phase_done(20, t0)
+
     # ---- 6: records. dense_closest and mega are timed on metric 1's path
     # (its d = 1 bounce), dense_any on the wavefront metric's, the resident
     # kernels on metric 2's bounce rays with the gate on (launches: the
@@ -1573,6 +1822,8 @@ def main() -> None:
          "resident_any", times_res, bounds13, launches4),
         ("probe_fma", "probe_fma.cu", "tools/probe_bf16.py:61", "probe_fma", times16, bounds16,
          launches5),
+        ("mega_full", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega_full", times20,
+         bounds20, launches20["transmission_rough"]),
     ]
     kern_json = [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,

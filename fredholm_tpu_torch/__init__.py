@@ -13,11 +13,14 @@ from .camera import Camera  # noqa: F401
 from .renderer import Renderer  # noqa: F401
 from .scene.procedural import (  # noqa: F401
     cornell_box,
+    furnace_sphere,
     hosek_sweep_scene,
     sphere_array_test,
+    sphere_grid_test,
     terrain,
 )
 from .scene.types import Material, Scene  # noqa: F401
 
 __all__ = ["Camera", "Material", "Renderer", "Scene", "cornell_box",
-           "hosek_sweep_scene", "sphere_array_test", "terrain"]
+           "furnace_sphere", "hosek_sweep_scene", "sphere_array_test",
+           "sphere_grid_test", "terrain"]

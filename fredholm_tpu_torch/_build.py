@@ -127,6 +127,7 @@ class ShadeArgs(ctypes.Structure):
         ("light_table", ctypes.c_void_p),
         ("sobol", ctypes.c_void_p),
         ("lut", ctypes.c_void_p),
+        ("sheen_lut", ctypes.c_void_p),
         ("n_spp", ctypes.c_void_p),
         ("sample_idx", ctypes.c_void_p),
         ("state_in", ctypes.c_void_p),

@@ -59,18 +59,20 @@ def _bilinear_fetch_2d(table, u, v):
 
 
 @functools.lru_cache(maxsize=8)
-def _device_table(name: str, device: torch.device) -> torch.Tensor:
-    """A table on `device`, copied once (a copy per fetch would stall the
-    card's queue)."""
+def device_table(name: str, device: torch.device) -> torch.Tensor:
+    """The "reflection" [16, 16, 2] or "sheen" [16, 16] table on `device`,
+    contiguous, copied once (a copy per fetch would stall the card's
+    queue). The wavefront's fetches and the shading kernel
+    (csrc/shade.cu) read them."""
     loader = {"reflection": reflection_lut_np, "sheen": sheen_lut_np}[name]
-    return torch.as_tensor(loader(), device=device)
+    return torch.as_tensor(loader(), device=device).contiguous()
 
 
 def compute_directional_albedo_reflection(wo, roughness, f0):
     """lut.cu:985-994: F0 * R + (1 - F0) * G at (|wo.y|, roughness)."""
     u = torch.abs(wo[..., 1])
     v = torch.clamp(roughness, 0.0, 1.0)
-    rg = _bilinear_fetch_2d(_device_table("reflection", u.device), u, v)
+    rg = _bilinear_fetch_2d(device_table("reflection", u.device), u, v)
     return f0 * rg[..., 0] + (1.0 - f0) * rg[..., 1]
 
 
@@ -78,4 +80,4 @@ def compute_directional_albedo_sheen(wo, roughness):
     """lut.cu:1075-1081."""
     u = torch.abs(wo[..., 1])
     v = torch.clamp(roughness, 0.0, 1.0)
-    return _bilinear_fetch_2d(_device_table("sheen", u.device), u, v)
+    return _bilinear_fetch_2d(device_table("sheen", u.device), u, v)

@@ -15,8 +15,15 @@
 // or the closest hit's prim. `mega` writes each emitted ray block into its
 // slice of one [7, B*N] buffer, so the next trace reads it in place.
 // Envelope: constant or Hosek sky, optional sun (directional light),
-// no textures, BSDF lobes metal, specular and diffuse_r (common.cuh); the
+// no textures, all seven BSDF lobes of cbsdf.ALL_LOBES (common.cuh); the
 // wrapper raises on anything else.
+//
+// `mega` comes in three variants, one body compiled three ways, each with
+// its own register budget. The plain one (constant sky, no sun, diffuse_r
+// only) and the rich one (Hosek sky, sun, metal and specular) shade with
+// `Bsdf`; the full one, which `fh_mega` launches whenever the scene has a
+// coat, transmission, sheen or diffuse transmission, with `BsdfFull`, so
+// the lobes it adds cost the other two nothing.
 //
 // Bound of `mega` on the H100: bytes. At metric 1's d >= 1 a lane reads
 // 172 B (its state, sample index and n_spp, the pending rows of its
@@ -24,7 +31,10 @@
 // and radiance blocks, the NEE blocks' prims) and writes 224 B (state,
 // pending rows, four ray blocks): 0.031 ms at 3.35 TB/s for 262,144 lanes
 // (d = 0: 360 B a lane, 0.028 ms), against ~1500 operations a lane,
-// hashing included (0.006 ms at 67 TFLOP/s, 0.012 unfused).
+// hashing included (0.006 ms at 67 TFLOP/s, 0.012 unfused). The full
+// variant reads the sheen table too and does ~3300 operations a lane:
+// at transmission_rough's d = 1 (262,144 lanes) still bytes, 0.0315 ms
+// against 0.013 (0.026 unfused).
 //
 // The design of `mega`, for what held the first one (every lane through
 // the whole select-style body at 119 and 148 registers: 4 and 3 blocks an
@@ -35,7 +45,10 @@
 //   registers, 72 B of spill stores) against 5 (96, spilling too) and 4
 //   or 3 (128, no spills), which take 1.03-1.08x its time on metric 1's
 //   bounces; the rich one at 5 (96 registers, 104 B) against 6 (80, 220
-//   B) and 3 (152, none), which take 1.15x its time on metric 2's d = 1.
+//   B) and 3 (152, none), which take 1.15x its time on metric 2's d = 1;
+//   the full one at 4 (128 registers, 88 B) against 5 (96, 264 B) and 3
+//   (164, none), which take 1.06x and 1.16x its time at
+//   transmission_rough's d = 1.
 // - A short path through the same body for lanes that shade nothing (not
 //   alive, or their ray missed): the work whose results the body masks away
 //   for them (the NEE BSDF evaluations and skies, the next bounce's sample
@@ -58,6 +71,7 @@ constexpr int kBlock = 128;
 // the resident blocks an SM that ptxas fits each mega variant's registers to
 constexpr int kMegaBlocksPlain = 6;
 constexpr int kMegaBlocksRich = 5;
+constexpr int kMegaBlocksFull = 4;
 
 __device__ __forceinline__ V3 ld3(const float* __restrict__ p, int row, long long stride, long long i) {
   return v3(p[row * stride + i], p[(row + 1) * stride + i], p[(row + 2) * stride + i]);
@@ -149,6 +163,17 @@ __device__ __forceinline__ Features features(const ShadeArgs& a) {
 }
 inline bool needs_rich(const ShadeArgs* a) {
   return (a->lobe_mask & ~LOBE_DIFFUSE_R) != 0 || a->sky_mode != SKY_CONSTANT || a->has_dl != 0;
+}
+inline bool needs_full(const ShadeArgs* a) { return (a->lobe_mask & LOBES_FULL_ONLY) != 0; }
+
+// the shading BSDF of a mega variant: BsdfFull for the full one, else Bsdf
+template <bool kFull>
+__device__ __forceinline__ auto shading_bsdf(const ShadeArgs& a, const float* __restrict__ m, V3 wo,
+                                             bool entering, int lobe_mask) {
+  if constexpr (kFull)
+    return bsdf_setup_full(m, wo, entering, lobe_mask, a.lut, a.sheen_lut);
+  else
+    return bsdf_setup(m, wo, entering, lobe_mask, a.lut);
 }
 
 // `_resolve_pending`: bounce d-1's NEE visibility + BSDF-light-ray MIS
@@ -253,9 +278,10 @@ __global__ void __launch_bounds__(kBlock) k_raygen(const ShadeArgs a) {
   a.rays_out[6 * n + i] = tmax;
 }
 
-template <bool kRich>
-__global__ void __launch_bounds__(kBlock, kRich ? kMegaBlocksRich : kMegaBlocksPlain)
-    k_mega(const ShadeArgs a) {
+// the body of every mega variant; kFull (which implies kRich) shades with
+// the full BSDF
+template <bool kRich, bool kFull>
+__device__ __forceinline__ void mega_body(const ShadeArgs& a) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const long long n = a.n;
@@ -328,7 +354,7 @@ __global__ void __launch_bounds__(kBlock, kRich ? kMegaBlocksRich : kMegaBlocksP
   // directions as computed), the light ray's pdf, the stale state. Work
   // whose results the body masks away for it sits behind `alive`.
   const V3 wo = world_to_local(-dir, tangent, n_s, bitangent);
-  const Bsdf bsdf = bsdf_setup(m, wo, entering, ft.lobe_mask, a.lut);
+  const auto bsdf = shading_bsdf<kFull>(a, m, wo, entering, ft.lobe_mask);
   const V3 shadow_origin = ray_origin_offset(x, n_g);
   const float shadow_tmax = alive ? RAY_TMAX : -1.0f;
   float* pd = a.pending_out;
@@ -490,6 +516,16 @@ __global__ void __launch_bounds__(kBlock, kRich ? kMegaBlocksRich : kMegaBlocksP
 }
 
 template <bool kRich>
+__global__ void __launch_bounds__(kBlock, kRich ? kMegaBlocksRich : kMegaBlocksPlain)
+    k_mega(const ShadeArgs a) {
+  mega_body<kRich, false>(a);
+}
+
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full(const ShadeArgs a) {
+  mega_body<true, true>(a);
+}
+
+template <bool kRich>
 __global__ void __launch_bounds__(kBlock) k_final(const ShadeArgs a) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -508,7 +544,9 @@ extern "C" int fh_raygen(const ShadeArgs* a, cudaStream_t stream) {
 }
 
 extern "C" int fh_mega(const ShadeArgs* a, cudaStream_t stream) {
-  if (needs_rich(a))
+  if (needs_full(a))
+    k_mega_full<<<grid(a->n), kBlock, 0, stream>>>(*a);
+  else if (needs_rich(a))
     k_mega<true><<<grid(a->n), kBlock, 0, stream>>>(*a);
   else
     k_mega<false><<<grid(a->n), kBlock, 0, stream>>>(*a);

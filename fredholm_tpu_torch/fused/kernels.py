@@ -13,9 +13,14 @@ trace reads it as it is.
 
 The wrappers run the stage twins (fused/pt_fused.py) for CPU tensors
 only; for CUDA tensors they launch the kernel or raise. The CUDA BSDF
-implements the weight/pmf scaffold of cbsdf.setup and the lobes `metal`,
-`specular` and `diffuse_r`; a config whose `lobes_on` holds any other
-lobe raises NotImplementedError before any launch.
+has all seven lobes of cbsdf.ALL_LOBES; a config whose `lobes_on` holds
+a name without a lobe bit (the thin film, which routes to the wavefront
+integrator) raises NotImplementedError before any launch. Mega runs in
+one of three variants (csrc/shade.cu): plain (constant sky, no sun,
+diffuse_r only), rich (Hosek sky, sun, metal and specular) and full (any
+of coat, transmission, sheen and diffuse_t); LAUNCHES counts every mega
+launch under "mega" and also under "mega_plain", "mega_rich" or
+"mega_full".
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ from ..sampling.sobol import sobol_matrices
 from . import cbsdf
 from . import pt_fused as pf
 
-CUDA_LOBES = ("metal", "specular", "diffuse_r")
+CUDA_LOBES = cbsdf.ALL_LOBES
+# the lobes only mega's full variant has (csrc/common.cuh LOBES_FULL_ONLY)
+FULL_LOBES = ("coat", "transmission", "sheen", "diffuse_t")
 CUDA_SKIES = (pf.SKY_CONSTANT, pf.SKY_HOSEK)
 
 
@@ -40,10 +47,21 @@ def _lobe_mask(cfg: pf.FusedConfig) -> int:
     missing = [lobe for lobe in cfg.lobes_on if lobe not in CUDA_LOBES]
     if missing:
         raise NotImplementedError(
-            f"CUDA shading kernel lacks BSDF lobes {missing}; it implements "
-            f"{CUDA_LOBES} only"
+            f"CUDA shading kernel has no BSDF lobes {missing}; it implements "
+            f"{CUDA_LOBES}"
         )
     return sum(1 << k for k, lobe in enumerate(cbsdf.ALL_LOBES) if lobe in cfg.lobes_on)
+
+
+def mega_variant(cfg: pf.FusedConfig) -> str:
+    """The mega variant csrc/shade.cu `fh_mega` launches for cfg
+    (`needs_full`, `needs_rich`): "full", "rich" or "plain"."""
+    if any(lobe in FULL_LOBES for lobe in cfg.lobes_on):
+        return "full"
+    if any(lobe != "diffuse_r" for lobe in cfg.lobes_on) \
+            or cfg.sky_mode != pf.SKY_CONSTANT or cfg.has_dl:
+        return "rich"
+    return "plain"
 
 
 @functools.lru_cache(maxsize=4)
@@ -52,10 +70,15 @@ def _sobol_device(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(sobol_matrices().view("int32"), device=device)
 
 
-@functools.lru_cache(maxsize=4)
 def _lut_device(device: torch.device) -> torch.Tensor:
-    """The [16, 16, 2] GGX reflection albedo table on `device`."""
-    return torch.as_tensor(lut_mod.reflection_lut_np(), device=device).contiguous()
+    """The [16, 16, 2] GGX reflection albedo table on `device` (the
+    specular and coat albedos)."""
+    return lut_mod.device_table("reflection", device)
+
+
+def _sheen_lut_device(device: torch.device) -> torch.Tensor:
+    """The [16, 16] sheen albedo table on `device`."""
+    return lut_mod.device_table("sheen", device)
 
 
 def _args(cfg: pf.FusedConfig, sv, usv, n_spp, **ptrs) -> _build.ShadeArgs:
@@ -78,6 +101,7 @@ def _args(cfg: pf.FusedConfig, sv, usv, n_spp, **ptrs) -> _build.ShadeArgs:
         a.usv, a.n_spp = usv.data_ptr(), n_spp.data_ptr()
     a.sobol = _sobol_device(sv.device).data_ptr()
     a.lut = _lut_device(sv.device).data_ptr()
+    a.sheen_lut = _sheen_lut_device(sv.device).data_ptr()
     a.n, a.width, a.height = n, cfg.width, cfg.height
     a.max_depth, a.n_lights = cfg.max_depth, cfg.n_lights
     a.lobe_mask = _lobe_mask(cfg)
@@ -198,6 +222,7 @@ def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
               rays_out=rays_out.data_ptr(), pending_out=pending_out.data_ptr(),
               aov_out=aov.data_ptr() if aov is not None else None, **ptrs)
     _launch("mega", _build.lib().fh_mega, a, dev)
+    _build.LAUNCHES["mega_" + mega_variant(cfg)] += 1
     return state_out, rays_out, pending_out, aov
 
 

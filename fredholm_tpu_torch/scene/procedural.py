@@ -1,10 +1,11 @@
 """Procedural test and benchmark scenes.
 
 Port of fredholm_tpu/scene/procedural.py (`cornell_box`, `uv_sphere`,
-`sphere_array_test`, `terrain` and their helpers) with byte-identical
-host arrays (tests/test_torch_render.py and test_torch_clustered.py
-check), plus `hosek_sweep_scene`, a copy of the scene bench.py metric 2
-renders (`bench.py:60-104` `_sweep_scene`).
+`sphere_array_test`, `furnace_sphere`, `sphere_grid_test`, `terrain` and
+their helpers) with byte-identical host arrays (tests/test_torch_render.py,
+test_torch_clustered.py and test_torch_lobes.py check), plus
+`hosek_sweep_scene`, a copy of the scene bench.py metric 2 renders
+(`bench.py:60-104` `_sweep_scene`).
 """
 
 from __future__ import annotations
@@ -131,6 +132,42 @@ def sphere_array_test(
         s = n * spacing
         v, nn, t, f = _quad([-s, 0, -s], [-s, 0, s], [s, 0, s], [s, 0, -s])
         parts.append((v, nn, t, f, np.full((len(f),), n, np.int32)))
+    return _scene(parts, materials)
+
+
+def furnace_sphere(material: Material) -> Scene:
+    """White-furnace scene (procedural.py:222-239): one unit sphere of
+    32 x 64 segments and no floor, lit only by a constant sky; a lossless
+    material vanishes against the background."""
+    v, nn, t, f = uv_sphere([0.0, 0.0, 0.0], 1.0, n_theta=32, n_phi=64)
+    return _scene([(v, nn, t, f, np.zeros((len(f),), np.int32))], [material])
+
+
+def sphere_grid_test(
+    param_x: str,
+    values_x,
+    param_y: str,
+    values_y,
+    base: Optional[Material] = None,
+    radius: float = 0.4,
+    spacing: float = 1.0,
+) -> Scene:
+    """2D material sweep (procedural.py:306-348): a grid of spheres, param_x
+    along the columns and param_y along the rows, no floor."""
+    base = base or Material()
+    materials: List[Material] = []
+    parts = []
+    nx = len(values_x)
+    for j, vy in enumerate(values_y):
+        for i, vx in enumerate(values_x):
+            m = dataclasses.replace(base)
+            setattr(m, param_x, vx)
+            setattr(m, param_y, vy)
+            materials.append(m)
+            cx = (i - (nx - 1) / 2.0) * spacing
+            cy = radius + j * spacing
+            v, nn, t, f = uv_sphere([cx, cy, 0.0], radius)
+            parts.append((v, nn, t, f, np.full((len(f),), j * nx + i, np.int32)))
     return _scene(parts, materials)
 
 

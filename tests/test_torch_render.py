@@ -204,15 +204,14 @@ def test_get_layer_and_envelope():
     r.render(n_samples=1, max_depth=2)
     assert r.get_layer("beauty").shape == (32, 32, 3)
     assert r.get_layer("depth").shape == (32, 32, 1)
-    # the CPU twins take every lobe; the CUDA kernel raises before launch
-    # on the lobes it lacks
+    # the CPU twins and the CUDA kernel take every lobe; the coat takes the
+    # kernel's full variant
     scene = cornell_box()
     scene.materials[0].coat = 0.5
     r.set_scene(scene)
-    assert r._lobes == ("coat", "diffuse_r")
+    assert r._lobes == ("coat", "diffuse_r") and r._params(2)["use_fused"]
     cfg = kernels.pf.FusedConfig(32, 32, 2, 2, r._lobes)
-    with pytest.raises(NotImplementedError, match="lobes"):
-        kernels._lobe_mask(cfg)
+    assert kernels._lobe_mask(cfg) == 65 and kernels.mega_variant(cfg) == "full"
     # a thin film routes the scene to the wavefront integrator
     scene = cornell_box()
     scene.materials[1].thin_film_thickness = 300.0

@@ -257,11 +257,24 @@ def test_config_draw_slots_match(d):
 
 
 def test_cuda_lobe_envelope_raises():
+    """The CUDA kernel has every lobe of cbsdf.ALL_LOBES (bit k for lobe
+    k); a name without a lobe bit (the thin film, which routes to the
+    wavefront integrator) raises before any launch."""
+    from fredholm_tpu_torch.fused import cbsdf
+
     cfg, _ = _cfgs(2)
-    with pytest.raises(NotImplementedError, match="lobes"):
-        kernels._lobe_mask(cfg._replace(lobes_on=("coat", "diffuse_r")))
+    assert kernels._lobe_mask(cfg._replace(lobes_on=cbsdf.ALL_LOBES)) == 127
     assert kernels._lobe_mask(cfg) == 64
     assert kernels._lobe_mask(cfg._replace(lobes_on=("metal", "specular", "diffuse_r"))) == 70
+    assert kernels._lobe_mask(cfg._replace(lobes_on=("coat", "diffuse_r"))) == 65
+    with pytest.raises(NotImplementedError, match="lobes"):
+        kernels._lobe_mask(cfg._replace(lobes_on=("specular", "thin_film", "diffuse_r")))
+    # the variant fh_mega launches (csrc/shade.cu needs_full, needs_rich)
+    assert kernels.mega_variant(cfg) == "plain"
+    assert kernels.mega_variant(cfg._replace(lobes_on=("metal", "diffuse_r"))) == "rich"
+    assert kernels.mega_variant(cfg._replace(has_dl=True)) == "rich"
+    for lobe in ("coat", "transmission", "sheen", "diffuse_t"):
+        assert kernels.mega_variant(cfg._replace(lobes_on=(lobe, "diffuse_r"))) == "full"
 
 
 _CSRC = os.path.join(os.path.dirname(tpf.__file__), "..", "csrc")
@@ -277,10 +290,18 @@ def test_cuda_header_matches_python_layout():
         assert int(defs[c]) == COL[name], c
     for m in ("emission_color", "has_emission", "base_color", "diffuse",
               "diffuse_roughness", "specular", "specular_color",
-              "specular_roughness", "metalness", "coat",
-              "coat_color", "transmission", "sheen", "subsurface",
+              "specular_roughness", "metalness", "coat", "coat_roughness",
+              "coat_color", "transmission", "transmission_color", "sheen",
+              "sheen_color", "sheen_roughness", "subsurface", "subsurface_color",
               "thin_walled"):
         assert int(defs["M_" + m.upper()]) == COL[m] - GEOM_COLS, m
+    from fredholm_tpu_torch.fused import cbsdf
+
+    for k, lobe in enumerate(cbsdf.ALL_LOBES):
+        assert int(defs["LOBE_" + lobe.upper()]) == 1 << k, lobe
+    full = re.search(r"#define LOBES_FULL_ONLY \(([^)]*)\)", src).group(1)
+    assert [x.strip() for x in full.split("|")] == \
+        ["LOBE_" + lobe.upper() for lobe in kernels.FULL_LOBES]
     for k in ("ST_O", "ST_D", "ST_THR", "ST_RAD", "ST_NV", "ST_ALIVE",
               "PD_SKY", "PD_AREA", "PD_TPF", "PD_PDF_L", "PD_WI_L_Y", "PD_DL",
               "AOV_POS", "AOV_NRM", "AOV_DEPTH", "AOV_TU", "AOV_TV", "AOV_ALB"):
