@@ -8,10 +8,14 @@ numpy BVH builds, renders) take seconds to tens of seconds each, so
 `cached` computes each once per session: the first worker to ask takes a
 `fcntl.flock` lock on the entry, computes it and stores it with
 `np.savez`; the others wait on the lock and load it (`cached_all` first
-takes the entries no other worker holds). Entries live in the
+takes the entries no other worker holds). A wait is bounded: after
+LOCK_WAIT_S the waiter computes the entry itself, and `os.replace` keeps
+the store atomic whoever writes last. Entries live in the
 directory all workers of the session share (the parent of each worker's
 base temporary directory; the base directory itself without xdist), and
 are keyed by a hash of the inputs that determine them.
+
+Its one test holds the bounded wait.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import os
+import sys
+import time
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -86,16 +92,58 @@ def cached_all(tmp_path_factory, entries: List[Tuple[str, object, Callable]]
     return out
 
 
+# How long a worker waits for an entry another worker holds before it
+# computes the entry itself: longer than any entry takes (the slowest, a
+# reference render, takes under two minutes on a loaded machine), so a
+# holder that is slow, stuck or gone costs a waiter this much at most
+LOCK_WAIT_S = 300.0
+_POLL_S = 0.25
+
+
+def _store(stem: str, compute: Callable) -> None:
+    """Compute the entry and put it in place atomically (os.replace), under
+    a temporary name of this process's own."""
+    out = {k: np.asarray(v) for k, v in compute().items()}
+    tmp = f"{stem}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **out)
+    os.replace(tmp, stem + ".npz")
+
+
 def _fill(stem: str, compute: Callable, blocking: bool) -> bool:
     """Make the entry at stem if it is not there; False if it is locked by
-    another worker and blocking is False."""
+    another worker and blocking is False. Blocking, wait for the lock at
+    most LOCK_WAIT_S, then make the entry without it."""
     with open(stem + ".lock", "w") as lock:
-        try:
-            fcntl.flock(lock, fcntl.LOCK_EX | (0 if blocking else fcntl.LOCK_NB))
-        except BlockingIOError:
-            return False
+        deadline = time.monotonic() + (LOCK_WAIT_S if blocking else 0.0)
+        while True:
+            try:
+                fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if os.path.exists(stem + ".npz"):
+                    return True
+                if time.monotonic() >= deadline:
+                    if not blocking:
+                        return False
+                    _store(stem, compute)
+                    return True
+                time.sleep(_POLL_S)
         if not os.path.exists(stem + ".npz"):
-            out = {k: np.asarray(v) for k, v in compute().items()}
-            np.savez(stem + ".tmp.npz", **out)
-            os.replace(stem + ".tmp.npz", stem + ".npz")
+            _store(stem, compute)
         return True
+
+
+def test_wait_on_a_held_entry_is_bounded(tmp_path, monkeypatch):
+    """A waiter whose entry another holder keeps locked computes it itself
+    after LOCK_WAIT_S; a non-blocking ask returns at once."""
+    monkeypatch.setattr(sys.modules[__name__], "LOCK_WAIT_S", 0.5)
+    stem = str(tmp_path / "entry")
+    with open(stem + ".lock", "w") as held:
+        fcntl.flock(held, fcntl.LOCK_EX)  # another open file: another holder
+        t0 = time.monotonic()
+        assert not _fill(stem, lambda: {"x": np.arange(3)}, blocking=False)
+        assert _fill(stem, lambda: {"x": np.arange(3)}, blocking=True)
+        assert 0.5 <= time.monotonic() - t0 < 5.0
+    with np.load(stem + ".npz") as z:
+        assert z["x"].tolist() == [0, 1, 2]
+    assert not [f for f in os.listdir(tmp_path) if ".tmp" in f]

@@ -161,7 +161,10 @@ def _camera_transform() -> np.ndarray:
 
 
 def _camera_scene(cls):
-    r = cls(width=64, height=64, **({"device": "cpu"} if cls is Renderer else {}))
+    # _setup's size, rendered below at its spp and depth: the camera is no
+    # part of the reference's compiled program, so the program it built for
+    # cornell_layers renders this scene too
+    r = cls(width=32, height=32, **({"device": "cpu"} if cls is Renderer else {}))
     scene = cornell_box() if cls is Renderer else j_cornell()
     scene.has_camera_transform = True
     scene.camera_transform = _camera_transform()
@@ -173,11 +176,11 @@ def test_scene_camera_transform_matches_reference(tmp_path_factory):
     """set_scene takes a scene's camera transform, as the reference does
     (renderer.py:314-318): both render it from that camera."""
     want = _reference_layers(tmp_path_factory, "cornell_camera_layers",
-                             lambda: _camera_scene(JRenderer), n_samples=2, max_depth=3)
+                             lambda: _camera_scene(JRenderer), n_samples=2, max_depth=4)
     t = _camera_scene(Renderer)
     np.testing.assert_array_equal(t.camera.transform, _camera_transform())
     np.testing.assert_array_equal(t.camera.origin, _camera_transform()[:3, 3])
-    t.render(n_samples=2, max_depth=3)
+    t.render(n_samples=2, max_depth=4)
     for key in LAYERS:
         np.testing.assert_allclose(t.layers[key].numpy(), want[key], rtol=2e-4, atol=2e-4,
                                    err_msg=key)
