@@ -3,8 +3,9 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (`--against CSRC_DIR`, which may repeat, also times other trees' B1 and
-mega kernels in turns with this tree's: phases 1, 5 and 9, and in phase
-20 mega's full variant of the trees that have one. A tree's
+mega kernels in turns with this tree's: phases 1, 5 and 9, in phase 20
+mega's full variant and in phase 23 its textured one, of the trees that
+have them. A tree's
 kernels take this tree's launch-argument struct, csrc/common.cuh
 `ShadeArgs`: an older tree's copy needs its struct brought level first)
 
@@ -31,7 +32,7 @@ exits non-zero without the final `ok` line:
    of each tree given by --against, their outputs held equal first (also
    mega at metric 2's d = 1, in phase 9)
 6. the kernel table, the card line, then {"ok": true, "device": ...}
-   (printed last, after phases 7-20)
+   (printed last, after phases 7-23)
 7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
    through Renderer(device="cuda"); the clustered closest-hit / any-hit
    kernels bit-equal to their twins in both kept variants (top levels
@@ -98,6 +99,20 @@ exits non-zero without the final `ok` line:
     full variant at transmission_rough's d = 1 vs its twin (CUDA events
     and a graph replay) beside both terms of its bound, and in turns with
     the full variant of each --against tree that has one
+21. mega's textured variant (k_mega_tex) and the final resolve's textured
+    instance vs their twins: the ptxas line, then compare_stages at each d
+    of the three texture goldens' setups (texture: a base-color checker;
+    normalmap: a tangent-space normal map, the sun; emission_texture: an
+    emission-textured panel, its two faces the area lights) at 512x512
+22. the goldens texture, normalmap and emission_texture through
+    Renderer(device="cuda"), scored against tests/golden/*.npz; each
+    launches the textured variant at every bounce and no twin
+23. the texture metrics: the three setups at 512x512 and their depth, 8 x
+    render(1) after 2 warm-up spp, with launch counts and for texture the
+    profiler's busy share and top kernels; then the textured variant at
+    texture's d = 1 vs its twin (CUDA events and a graph replay) beside
+    both terms of its bound, and in turns with the textured variant of
+    each --against tree that has one
 """
 
 from __future__ import annotations
@@ -152,7 +167,11 @@ REPLACED_MS = {
 # evaluations (the coat, transmission and sheen lobes), ~140 in the setup
 # (their albedo fetches, the seven-lobe layer chain) and ~200 in the two
 # samplers
-STAGE_OPS = {"raygen": 300, "mega": 1500, "mega_full": 3300, "final_resolve": 150}
+# mega_tex: mega_full's, plus ~150 a texel tap (addressing, four texels
+# unpacked and sRGB-decoded, the bilinear blend): one tap a lane on the
+# texture setup it is timed on
+STAGE_OPS = {"raygen": 300, "mega": 1500, "mega_full": 3300, "mega_tex": 3450,
+             "final_resolve": 150}
 
 
 def card_line() -> str:
@@ -212,8 +231,9 @@ def mega_bytes(cfg, pf, kernels, d, n, tr, tables, sv, usv):
     the radiance block's prim, u and v. A hit's geometry is 25 slot-fetch
     planes at d = 0, 19 after (20 for the light block), or on a dense
     scene the fused_table, read once like the material, light, Sobol,
-    GGX reflection (coat, specular) and sheen tables and the scalars. It
-    writes every state, pending and ray row, and at d = 0 the AOVs."""
+    GGX reflection (coat, specular) and sheen tables and the scalars, and
+    (a textured config) the texel run atlas, each once. It writes every
+    state, pending and ray row, and at d = 0 the AOVs."""
     geom = tr.geom is not None
     lane = 16 + 4 * pf.ST_ROWS
     if d == 0:
@@ -234,6 +254,7 @@ def mega_bytes(cfg, pf, kernels, d, n, tr, tables, sv, usv):
     consts += [tables["light_table"]] if cfg.has_area else []
     consts += [kernels._lut_device(dev)] if {"coat", "specular"} & set(cfg.lobes_on) else []
     consts += [kernels._sheen_lut_device(dev)] if "sheen" in cfg.lobes_on else []
+    consts += [tables["tex_runs"]] if cfg.tex_kinds else []
     return n * (lane + written) + nbytes(*consts)
 
 
@@ -688,6 +709,9 @@ LOBE_GOLDENS = ("clear_coat", "sheen", "transmission", "transmission_rough",
 NEW_GOLDENS = ("furnace", "thinlens", "metal_rough_grid") + LOBE_GOLDENS
 STAGE_GOLDENS = {"clear_coat": "coat", "sheen": "sheen", "transmission_rough": "transmission",
                  "diffuse_transmission": "diffuse_t"}
+# the goldens of phases 21-23: each scene uses one texture kind
+TEXTURE_GOLDENS = {"texture": "base_color", "normalmap": "normalmap",
+                   "emission_texture": "emission"}
 
 
 def golden_setup(name, size=None):
@@ -696,9 +720,12 @@ def golden_setup(name, size=None):
     the golden's size or at size x size."""
     import fredholm_tpu_torch as ft
     from fredholm_tpu_torch.scene.procedural import (
+        emission_texture_test,
         furnace_sphere,
+        normalmap_test,
         sphere_array_test,
         sphere_grid_test,
+        texture_test,
     )
     from fredholm_tpu_torch.scene.types import Material as M
 
@@ -731,6 +758,11 @@ def golden_setup(name, size=None):
         "diffuse_transmission": (48, lambda: sphere_array_test(
             "subsurface", [0.0, 1.0], base=M(thin_walled=1.0), spacing=1.05), at,
             ((4, 4, 4), (-0.2, 1.0, -0.5), 2.0), (0.05, 0.05, 0.05), 16, 4),
+        "texture": (64, texture_test, (0.0, 1.0, 2.2), None, (0.7, 0.8, 0.9), 12, 3),
+        "normalmap": (64, normalmap_test, (0.0, 1.0, 2.2), ((3, 3, 3), (0.5, 1.0, 0.4), 1.0),
+                      (0.2, 0.2, 0.25), 12, 3),
+        "emission_texture": (64, emission_texture_test, (0.0, 1.0, 2.6), None, (0.0, 0.0, 0.0),
+                             16, 3),
     }
     g_size, scene, origin, sun, bg, spp, depth = table[name]
     w = size or g_size
@@ -788,8 +820,9 @@ def parse_args(argv):
                    "e.g. an unpacked `git archive <commit> fredholm_tpu_torch/csrc`) and "
                    "time its B1 and mega in turns with this tree's, on the same inputs, "
                    "at each bounce of metric 1 ([5]) and at metric 2's d = 1 ([9]), "
-                   "and mega's full variant at transmission_rough's d = 1 ([20]) where "
-                   "the tree has one, after holding their outputs equal; may repeat")
+                   "mega's full variant at transmission_rough's d = 1 ([20]) and its "
+                   "textured one at texture's d = 1 ([23]) where the tree has them, after "
+                   "holding their outputs equal; may repeat")
     return p.parse_args(argv)
 
 
@@ -838,6 +871,7 @@ def main() -> None:
         print(f"[1] ptxas {name}: {info}")
     trees = {THIS_TREE: _build.lib()}
     full_trees = [THIS_TREE]  # the trees with mega's full variant
+    tex_trees = [THIS_TREE]  # the trees with mega's textured variant
     for csrc in args.against:
         info = {}
         trees[csrc] = _build.load(_build.build(os.path.abspath(csrc), info))
@@ -846,6 +880,8 @@ def main() -> None:
                 print(f"[1] ptxas {csrc} {name}: {regs}")
         if any("k_mega_full" in name for name in info.get("ptxas", {})):
             full_trees.append(csrc)
+        if any("k_mega_tex" in name for name in info.get("ptxas", {})):
+            tex_trees.append(csrc)
     # turns of each timing against the other trees: their differences are
     # a few percent, so more turns than for this tree alone
     rounds = 6 if len(trees) > 1 else 2
@@ -1793,11 +1829,126 @@ def main() -> None:
           f"{bounds20['mega_full'][1]}")
     phase_done(20, t0)
 
+    # ---- 21: mega's textured variant vs its twins on the three texture setups
+    t0 = time.perf_counter()
+    tex_ptxas = {k: v for k, v in _build.BUILD_INFO.get("ptxas", {}).items()
+                 if "k_mega_tex" in k or "k_final" in k}
+    print(f"[21] ptxas of the textured mega variant and the final resolve: {tex_ptxas}")
+    if not any("k_mega_tex" in k for k in tex_ptxas):
+        raise AssertionError("no k_mega_tex among the built kernels")
+    tex_err = []
+    for name, kind in TEXTURE_GOLDENS.items():
+        r, kw = golden_setup(name, 512)
+        p21 = r._params(kw["max_depth"])
+        cfg21 = pf.make_config(r._dev, p21)
+        n21 = r.width * r.height
+        if cfg21.tex_kinds != (kind,) or kernels.mega_variant(cfg21) != "tex":
+            raise AssertionError(f"[21] {name}: texture kinds {cfg21.tex_kinds} do not take "
+                                 "the textured variant")
+        sv21, usv21 = pf.pack_scalars(p21, n21, dev)
+        n_spp21 = torch.full((n21,), 3, dtype=torch.int64, device=dev)
+        res21 = compare_stages(f"[21] {name}", cfg21, pf, kernels, sv21, usv21, r._dev, n_spp21,
+                               stage_tracer(pf, cfg21, r._dev, n21),
+                               depths=range(cfg21.max_depth))
+        print(f"[21] {name} ({kind}, lobes {cfg21.lobes_on}, {r.width}x{r.height}, depth "
+              f"{cfg21.max_depth}, {r._dev['n_lights']} area lights, "
+              f"{r._dev['tex_runs'].shape[0]} texel runs)")
+        tex_err.append(res21["mega"])
+        for k in ("raygen", "final_resolve"):
+            results[k] = max(results[k], res21[k])
+    results["mega_tex"] = max(tex_err)
+    phase_done(21, t0)
+
+    # ---- 22: the three texture goldens, through the user entry point
+    t0 = time.perf_counter()
+    for name in TEXTURE_GOLDENS:
+        r, kw = golden_setup(name)
+        if not r._params(kw["max_depth"])["use_fused"]:
+            raise AssertionError(f"[22] golden {name} did not route to the fused pipeline")
+        _build.LAUNCHES.clear()
+        r.render(**kw)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        score_golden("[22]", name, r.get_layer("beauty"), counts, (r.height, r.width, 3))
+        want_tex = kw["n_samples"] * kw["max_depth"]
+        if counts.get("mega_tex", 0) != want_tex or counts.get("mega", 0) != want_tex \
+                or counts.get("final", 0) != kw["n_samples"]:
+            raise AssertionError(f"[22] golden {name}: launches {counts}, the textured variant "
+                                 f"expected {want_tex} times")
+    print("[22] the port scores 17 of the 20 goldens (left: hero, instanced, ibl)")
+    phase_done(22, t0)
+
+    # ---- 23: the texture metrics: the three setups at 512x512
+    t0 = time.perf_counter()
+    spp23 = 8
+    launches23 = {}
+    for name in TEXTURE_GOLDENS:
+        r, kw = golden_setup(name, 512)
+        d23 = kw["max_depth"]
+        pv23, seconds23, l23 = timed_metric(r, spp23, d23, _build)
+        beauty23 = r.get_layer("beauty")
+        if not (np.isfinite(beauty23).all() and 0.001 < beauty23.mean() < 100.0):
+            raise AssertionError(f"[23] {name} image is off: mean {beauty23.mean()}")
+        twins23 = {k: v for k, v in l23.items() if k.endswith("_twin") and v}
+        if twins23 or l23.get("mega_tex", 0) != d23 * spp23:
+            raise AssertionError(f"[23] {name} launches {l23}: expected the textured variant "
+                                 f"{d23 * spp23} times and no twins")
+        launches23[name] = l23
+        print(json.dumps({
+            "metric": f"{name}_512x512_{spp23}spp_depth{d23}",
+            "mpath_vertices_per_s": pv23 / seconds23 / 1e6,
+            "path_vertices": pv23,
+            "seconds": seconds23,
+            "beauty_mean": float(beauty23.mean()),
+            "card": card,
+            "launches": l23,
+        }))
+        if name == "texture":
+            profile_busy("[23]", "texture at 512x512", r, d23, start_tracer=False)
+
+    # the textured variant at texture's d = 1, against its twin and beside
+    # its bound: CUDA events around the wrapper, and graph replays
+    r, kw = golden_setup("texture", 512)
+    p23 = r._params(kw["max_depth"])
+    cfg23 = pf.make_config(r._dev, p23)
+    n23 = r.width * r.height
+    sv23, usv23 = pf.pack_scalars(p23, n23, dev)
+    n_spp23 = torch.full((n23,), 3, dtype=torch.int64, device=dev)
+    tracer23 = stage_tracer(pf, cfg23, r._dev, n23)
+    st, si, rays = kernels.raygen(cfg23, sv23, usv23, n_spp23)
+    st, rays, pend, _ = kernels.mega(cfg23, 0, sv23, usv23, r._dev, n_spp23, si, st, rays, None,
+                                     tracer23(rays, 0))
+    tr23 = tracer23(rays, 1)
+
+    def tex23():
+        return kernels.mega(cfg23, 1, sv23, usv23, r._dev, n_spp23, si, st, rays, pend, tr23)
+
+    times23 = time_pairs("[23]", {"mega_tex": (tex23, lambda: pf.mega_twin(
+        cfg23, 1, sv23, usv23, r._dev, n_spp23, si, st, rays, pend, tr23))}, {})
+    graph23 = graph_ms(tex23)
+    if len(tex_trees) > 1:
+        tree_turns("[23] texture d=1", _build, {t: trees[t] for t in tex_trees},
+                   {"mega_tex": tex23}, rounds)
+    work23 = (mega_bytes(cfg23, pf, kernels, 1, n23, tr23, r._dev, sv23, usv23),
+              n23 * STAGE_OPS["mega_tex"])
+    bounds23 = {"mega_tex": bound(*work23)}
+    print(f"[23] mega_tex at texture's d = 1: {n23} lanes, alive "
+          f"{int((st[pf.ST_ALIVE] != 0).sum())}, texel runs {r._dev['tex_runs'].shape[0]} "
+          f"({nbytes(r._dev['tex_runs'])} B); events {times23['mega_tex'][0]:.4f} ms, graph "
+          f"{graph23:.4f} ms, twin {times23['mega_tex'][1]:.4f} ms; bound bytes "
+          f"{work23[0] / PEAK_BYTES_PER_S * 1e3:.4f} ms, operations "
+          f"{work23[1] / PEAK_FP32_PER_S * 1e3:.4f} ms at 67 TFLOP/s "
+          f"({work23[1] / (PEAK_FP32_PER_S / 2) * 1e3:.4f} unfused); the row uses "
+          f"{bounds23['mega_tex'][1]}")
+    phase_done(23, t0)
+
     # ---- 6: records. dense_closest and mega are timed on metric 1's path
     # (its d = 1 bounce), dense_any on the wavefront metric's, the resident
     # kernels on metric 2's bounce rays with the gate on (launches: the
-    # resident metric's), probe_fma on its probe run, the others on metric
-    # 2's (raygen and final: metric 1's times print in [5])
+    # resident metric's), probe_fma on its probe run, mega_full and
+    # mega_tex at their d = 1 of [20] and [23] (launches: the
+    # transmission_rough and texture metrics'), the others on metric 2's
+    # (raygen and final: metric 1's times print in [5])
     src = "fredholm_tpu_torch/csrc/"
     table = [
         ("dense_closest", "dense_closest.cu", "fredholm_tpu/accel/pallas_dense.py:93",
@@ -1820,10 +1971,12 @@ def main() -> None:
          "resident_closest", times_res, bounds13, launches4),
         ("resident_any", "resident.cu", "fredholm_tpu/experimental/pallas_resident.py:105",
          "resident_any", times_res, bounds13, launches4),
-        ("probe_fma", "probe_fma.cu", "tools/probe_bf16.py:61", "probe_fma", times16, bounds16,
+        ("probe_fma", "probe_fma.cu", "tools/probe_bf16.py:36", "probe_fma", times16, bounds16,
          launches5),
         ("mega_full", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega_full", times20,
          bounds20, launches20["transmission_rough"]),
+        ("mega_tex", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega_tex", times23,
+         bounds23, launches23["texture"]),
     ]
     kern_json = [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,

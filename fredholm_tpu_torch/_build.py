@@ -158,6 +158,9 @@ class ShadeArgs(ctypes.Structure):
         ("sky_mode", ctypes.c_int),
         ("has_dl", ctypes.c_int),
         ("hit_block0", ctypes.c_int),
+        ("tex_mask", ctypes.c_int),
+        ("n_tex_runs", ctypes.c_int),
+        ("tex_runs", ctypes.c_void_p),
     ]
 
 

@@ -54,6 +54,9 @@ struct ShadeArgs {
   int sky_mode;               // SKY_CONSTANT or SKY_HOSEK
   int has_dl;                 // directional light (sun) NEE block
   int hit_block0;             // first ray block the closest hits cover
+  int tex_mask;               // bit k: pt_fused.TEX_KINDS[k] a material uses
+  int n_tex_runs;             // rows of tex_runs
+  const unsigned* tex_runs;   // [n_tex_runs, 16] texel runs (scene/texture.py)
 };
 
 // packed plane rows (fused/pt_fused.py)
@@ -105,6 +108,22 @@ struct ShadeArgs {
 #define M_SUBSURFACE 29
 #define M_SUBSURFACE_COLOR 30
 #define M_THIN_WALLED 33
+// the tx_<kind> columns (texture id, run offset, width, height, runs per
+// row, srgb) of TEX_KINDS[k] start at M_TX0 + TX_COLS * k
+#define M_TX0 34
+#define TX_COLS 6
+
+// bit k: pt_fused.TEX_KINDS[k]
+#define TEX_BASE_COLOR 1
+#define TEX_SPECULAR_COLOR 2
+#define TEX_SPECULAR_ROUGHNESS 4
+#define TEX_METALNESS 8
+#define TEX_METALLIC_ROUGHNESS 16
+#define TEX_COAT 32
+#define TEX_COAT_ROUGHNESS 64
+#define TEX_EMISSION 128
+#define TEX_NORMALMAP 256
+#define TEX_HEIGHTMAP 512
 
 // bit k: cbsdf.ALL_LOBES[k]
 #define LOBE_COAT 1
@@ -1112,4 +1131,63 @@ __device__ __forceinline__ void bsdf_sample(const BsdfFull& b, V3 wo, float u, f
   }
   f = san3(f);
   pdf = san(p * pmf_sel);
+}
+
+// ---------------------------------------------------------------------------
+// textures (scene/texture.py): 8x2 texel runs at x-stride 4, wrap baked in,
+// so a bilinear footprint lies in one run row
+
+struct Texel4 {
+  float r, g, b, a;
+};
+
+__device__ __forceinline__ float srgb_to_linear(float c) {
+  return c <= 0.04045f ? c / 12.92f : powf((c + 0.055f) / 1.055f, 2.4f);
+}
+
+__device__ __forceinline__ Texel4 unpack_texel(uint32_t t, bool srgb) {
+  Texel4 o;
+  o.r = (float)(t & 0xFFu) / 255.0f;
+  o.g = (float)((t >> 8) & 0xFFu) / 255.0f;
+  o.b = (float)((t >> 16) & 0xFFu) / 255.0f;
+  o.a = (float)(t >> 24) / 255.0f;
+  if (srgb) {
+    o.r = srgb_to_linear(o.r);
+    o.g = srgb_to_linear(o.g);
+    o.b = srgb_to_linear(o.b);
+  }
+  return o;
+}
+
+// `sample_texture_hdr`: the bilinear fetch at (u, v) of the texture whose
+// header (run offset, width, height, runs per row, srgb) is hdr[0..4].
+// jnp.mod is a floor-mod: a floor of -1 wraps to w - 1 (C's % truncates).
+// The footprint's run row is off + yw * rw + xw / 4, its texels columns
+// lx, lx + 1, lx + 8 and lx + 9 of it (lx = xw % 4). The weights multiply
+// and sum in the twin's order.
+__device__ __forceinline__ Texel4 tex_fetch(const unsigned* __restrict__ runs, int n_runs,
+                                            const float* __restrict__ hdr, float u, float v) {
+  const float uu = u * hdr[1] - 0.5f;
+  const float vv = v * hdr[2] - 0.5f;
+  const float x0 = floorf(uu), y0 = floorf(vv);
+  const float fx = uu - x0, fy = vv - y0;
+  const int wi = max((int)hdr[1], 1), hi = max((int)hdr[2], 1);
+  int xw = (int)x0 % wi;
+  int yw = (int)y0 % hi;
+  xw += xw < 0 ? wi : 0;
+  yw += yw < 0 ? hi : 0;
+  int ri = (int)hdr[0] + yw * (int)hdr[3] + xw / 4;
+  ri = ri < 0 ? 0 : (ri > n_runs - 1 ? n_runs - 1 : ri);
+  const unsigned* row = runs + (long long)ri * 16 + (xw & 3);
+  const bool srgb = hdr[4] > 0.0f;
+  const Texel4 t00 = unpack_texel(row[0], srgb), t10 = unpack_texel(row[1], srgb);
+  const Texel4 t01 = unpack_texel(row[8], srgb), t11 = unpack_texel(row[9], srgb);
+  const float w00 = (1.0f - fx) * (1.0f - fy), w10 = fx * (1.0f - fy);
+  const float w01 = (1.0f - fx) * fy, w11 = fx * fy;
+  Texel4 o;
+  o.r = w00 * t00.r + w10 * t10.r + w01 * t01.r + w11 * t11.r;
+  o.g = w00 * t00.g + w10 * t10.g + w01 * t01.g + w11 * t11.g;
+  o.b = w00 * t00.b + w10 * t10.b + w01 * t01.b + w11 * t11.b;
+  o.a = w00 * t00.a + w10 * t10.a + w01 * t01.a + w11 * t11.a;
+  return o;
 }

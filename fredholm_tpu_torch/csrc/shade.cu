@@ -14,16 +14,31 @@
 // trace that carried it: the any-hit booleans (`occ`, clustered scenes)
 // or the closest hit's prim. `mega` writes each emitted ray block into its
 // slice of one [7, B*N] buffer, so the next trace reads it in place.
-// Envelope: constant or Hosek sky, optional sun (directional light),
-// no textures, all seven BSDF lobes of cbsdf.ALL_LOBES (common.cuh); the
-// wrapper raises on anything else.
+// Envelope: constant or Hosek sky, optional sun (directional light), the
+// ten texture kinds of pt_fused.TEX_KINDS, all seven BSDF lobes of
+// cbsdf.ALL_LOBES (common.cuh); the wrapper raises on anything else.
 //
-// `mega` comes in three variants, one body compiled three ways, each with
+// `mega` comes in four variants, one body compiled four ways, each with
 // its own register budget. The plain one (constant sky, no sun, diffuse_r
 // only) and the rich one (Hosek sky, sun, metal and specular) shade with
 // `Bsdf`; the full one, which `fh_mega` launches whenever the scene has a
 // coat, transmission, sheen or diffuse transmission, with `BsdfFull`, so
-// the lobes it adds cost the other two nothing.
+// the lobes it adds cost the other two nothing. The textured one
+// (`k_mega_tex`, every feature of the full one) takes every scene whose
+// materials use a texture (`tex_mask`), and `k_final`'s textured instance
+// the same scenes.
+//
+// Textures. The reference fetches texels in its jnp gather stage, outside
+// the Pallas kernel, into planes the kernel reads (pt_fused.py:534
+// `fetch_texture_planes`; Mosaic has no gather). Here the kernel fetches
+// them itself, from the run atlas (common.cuh `tex_fetch`) with the header
+// the material row carries in its tx_<kind> columns: for each kind of
+// `tex_mask` a material has (texture id >= 0), one run row a tap (three
+// for the heightmap). It overrides the shading columns in a copy of the
+// row (`_apply_tex_overrides`), bumps then normal-maps the shading frame
+// (pt_fused.py:837-872), and replaces the emission at the first hit and at
+// the light ray's hit (`emission_from_attrs`); NEE toward an area light
+// keeps the light table's untextured emission, as the reference does.
 //
 // Bound of `mega` on the H100: bytes. At metric 1's d >= 1 a lane reads
 // 172 B (its state, sample index and n_spp, the pending rows of its
@@ -72,6 +87,7 @@ constexpr int kBlock = 128;
 constexpr int kMegaBlocksPlain = 6;
 constexpr int kMegaBlocksRich = 5;
 constexpr int kMegaBlocksFull = 4;
+constexpr int kMegaBlocksTex = 4;
 
 __device__ __forceinline__ V3 ld3(const float* __restrict__ p, int row, long long stride, long long i) {
   return v3(p[row * stride + i], p[(row + 1) * stride + i], p[(row + 2) * stride + i]);
@@ -176,8 +192,89 @@ __device__ __forceinline__ auto shading_bsdf(const ShadeArgs& a, const float* __
     return bsdf_setup(m, wo, entering, lobe_mask, a.lut);
 }
 
-// `_resolve_pending`: bounce d-1's NEE visibility + BSDF-light-ray MIS
-template <bool kRich>
+// texture kind k's tx columns of material row m: the texture id, then the
+// header tex_fetch takes
+__device__ __forceinline__ const float* tx(const float* __restrict__ m, int k) {
+  return m + M_TX0 + TX_COLS * k;
+}
+// whether a material row uses texture kind k (its bit, TEX_KINDS[k], is in
+// the launch's tex_mask and its texture id is >= 0)
+__device__ __forceinline__ bool tex_has(const ShadeArgs& a, const float* __restrict__ m, int k) {
+  return (a.tex_mask & (1 << k)) != 0 && tx(m, k)[0] >= 0.0f;
+}
+__device__ __forceinline__ Texel4 tex_at(const ShadeArgs& a, const float* __restrict__ m, int k, float u,
+                                         float v) {
+  return tex_fetch(a.tex_runs, a.n_tex_runs, tx(m, k) + 1, u, v);
+}
+constexpr int kTexEmission = 7, kTexNormalmap = 8, kTexHeightmap = 9;  // TEX_KINDS indices
+
+// `emission_from_attrs`: the emission of material row m at uv (u, v)
+__device__ __forceinline__ V3 emission_at(const ShadeArgs& a, const float* __restrict__ m, float u, float v) {
+  if (!tex_has(a, m, kTexEmission)) return row3(m, M_EMISSION_COLOR);
+  const Texel4 c = tex_at(a, m, kTexEmission, u, v);
+  return v3(c.r, c.g, c.b);
+}
+
+// The textured shading of a hit at uv (u, v): mt gets the material row's
+// first M_TX0 columns with `_apply_tex_overrides` applied, in its order;
+// the frame (n_s, t, b) is bumped, then normal-mapped on the unperturbed
+// frame (pt_fused.py:837-872)
+__device__ __forceinline__ void tex_shading(const ShadeArgs& a, const float* __restrict__ m, float u, float v,
+                                            float* mt, V3& n_s, V3& t, V3& b) {
+#pragma unroll
+  for (int c = 0; c < M_TX0; ++c) mt[c] = m[c];
+  if (tex_has(a, m, 0)) {  // base_color
+    const Texel4 c = tex_at(a, m, 0, u, v);
+    mt[M_BASE_COLOR] = c.r;
+    mt[M_BASE_COLOR + 1] = c.g;
+    mt[M_BASE_COLOR + 2] = c.b;
+  }
+  if (tex_has(a, m, 1)) {  // specular_color
+    const Texel4 c = tex_at(a, m, 1, u, v);
+    mt[M_SPECULAR_COLOR] = c.r;
+    mt[M_SPECULAR_COLOR + 1] = c.g;
+    mt[M_SPECULAR_COLOR + 2] = c.b;
+  }
+  if (tex_has(a, m, 2)) mt[M_SPECULAR_ROUGHNESS] = jclip(tex_at(a, m, 2, u, v).r, 0.01f, 1.0f);
+  if (tex_has(a, m, 3)) mt[M_METALNESS] = tex_at(a, m, 3, u, v).r;
+  if (tex_has(a, m, 4)) {  // metallic_roughness, glTF packing: g roughness, b metalness
+    const Texel4 c = tex_at(a, m, 4, u, v);
+    mt[M_SPECULAR_ROUGHNESS] = jclip(c.g, 0.01f, 1.0f);
+    mt[M_METALNESS] = jclip(c.b, 0.0f, 1.0f);
+  }
+  if (tex_has(a, m, 5)) mt[M_COAT] = jclip(tex_at(a, m, 5, u, v).r, 0.0f, 1.0f);
+  // reference quirk, mirrored: coat roughness reads channel .g (pt_fused.py:644)
+  if (tex_has(a, m, 6)) mt[M_COAT_ROUGHNESS] = jclip(tex_at(a, m, 6, u, v).g, 0.0f, 1.0f);
+
+  V3 pt = t, pb = b, pn = n_s;
+  if (tex_has(a, m, kTexHeightmap)) {
+    // forward differences one texel away; the step is 0 for a header of
+    // width 0, where the reference divides by it (ROADMAP Queue C item 4)
+    const float* hh = tx(m, kTexHeightmap) + 1;
+    const float du = hh[1] > 0.0f ? 1.0f / hh[1] : 0.0f;
+    const float dv = hh[2] > 0.0f ? 1.0f / hh[2] : 0.0f;
+    const float h0 = tex_at(a, m, kTexHeightmap, u, v).r;
+    const float dfdu = tex_at(a, m, kTexHeightmap, u + du, v).r - h0;
+    const float dfdv = tex_at(a, m, kTexHeightmap, u, v + dv).r - h0;
+    pt = normalize(t + n_s * dfdu, 0.0f);
+    pb = normalize(b + n_s * dfdv, 0.0f);
+    pn = normalize(cross(pt, pb), 0.0f);
+  }
+  if (tex_has(a, m, kTexNormalmap)) {
+    // a tangent-space map with +Z normal in a +Y local frame: (x, z, y)
+    const Texel4 c = tex_at(a, m, kTexNormalmap, u, v);
+    pn = normalize(local_to_world(v3(c.r * 2.0f - 1.0f, c.b * 2.0f - 1.0f, c.g * 2.0f - 1.0f), t, n_s, b),
+                   0.0f);
+    onb(pn, pt, pb);
+  }
+  t = pt;
+  b = pb;
+  n_s = pn;
+}
+
+// `_resolve_pending`: bounce d-1's NEE visibility + BSDF-light-ray MIS;
+// kTex: the light ray's hit shows the emission texture
+template <bool kRich, bool kTex>
 __device__ __forceinline__ V3 resolve_pending(const ShadeArgs& a, int i, V3 rad) {
   const long long n = a.n;
   const Features ft = features<kRich>(a);
@@ -207,7 +304,15 @@ __device__ __forceinline__ V3 resolve_pending(const ShadeArgs& a, int i, V3 rad)
     V3 l_n = interp3(g, C_N0, lw0, lw1, lw2);
     bool l_emissive = (m[M_HAS_EMISSION] > 0.0f) && (dot(-ldir, l_n) > 0.0f);
     bool hit_light = l_hit && l_emissive;
-    le = l_hit ? (hit_light ? row3(m, M_EMISSION_COLOR) : zero3()) : le_miss;
+    V3 le_hit = row3(m, M_EMISSION_COLOR);
+    if constexpr (kTex) {
+      if (hit_light) {
+        const float lu = lw0 * g[C_UV0] + lw1 * g[C_UV0 + 2] + lw2 * g[C_UV0 + 4];
+        const float lv = lw0 * g[C_UV0 + 1] + lw1 * g[C_UV0 + 3] + lw2 * g[C_UV0 + 5];
+        le_hit = emission_at(a, m, lu, lv);
+      }
+    }
+    le = l_hit ? (hit_light ? le_hit : zero3()) : le_miss;
     V3 to_p = l_p - ld3(a.rays_in, 0, a.rays_in_stride, li);
     float r2 = dot(to_p, to_p);
     float n_l = (float)(a.n_lights > 1 ? a.n_lights : 1);
@@ -279,8 +384,8 @@ __global__ void __launch_bounds__(kBlock) k_raygen(const ShadeArgs a) {
 }
 
 // the body of every mega variant; kFull (which implies kRich) shades with
-// the full BSDF
-template <bool kRich, bool kFull>
+// the full BSDF, kTex (which implies kFull) applies the textures
+template <bool kRich, bool kFull, bool kTex>
 __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -305,7 +410,7 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
   float nv = st[ST_NV * n + i];
   bool alive = st[ST_ALIVE * n + i] != 0.0f;
 
-  if (d > 0) rad = resolve_pending<kRich>(a, i, rad);
+  if (d > 0) rad = resolve_pending<kRich, kTex>(a, i, rad);
 
   // ---- shade bounce d
   const long long ri = (d == 0 ? 0 : k.rad - a.hit_block0) * n + i;
@@ -334,6 +439,18 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
   V3 tangent, bitangent;
   onb(n_s, tangent, bitangent);
 
+  // the shading columns: the material row, or (kTex) its copy with the
+  // texture overrides
+  const float* ms = m;
+  float mt[kTex ? M_TX0 : 1];
+  float tex_u = 0.0f, tex_v = 0.0f;
+  if constexpr (kTex) {
+    tex_u = w0 * g[C_UV0] + w1 * g[C_UV0 + 2] + w2 * g[C_UV0 + 4];
+    tex_v = w0 * g[C_UV0 + 1] + w1 * g[C_UV0 + 3] + w2 * g[C_UV0 + 5];
+    tex_shading(a, m, tex_u, tex_v, mt, n_s, tangent, bitangent);
+    ms = mt;
+  }
+
   if (d == 0) {  // first-hit AOVs + emissive-hit termination (pt.cu:745-760)
     const bool cap = alive;
     float tu = w0 * g[C_UV0] + w1 * g[C_UV0 + 2] + w2 * g[C_UV0 + 4];
@@ -343,9 +460,13 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
     a.aov_out[AOV_DEPTH * n + i] = cap ? a.hit_t[ri] : 0.0f;
     a.aov_out[AOV_TU * n + i] = cap ? tu : 0.0f;
     a.aov_out[AOV_TV * n + i] = cap ? tv : 0.0f;
-    st3(a.aov_out, AOV_ALB, n, i, cap ? row3(m, M_BASE_COLOR) : zero3());
+    st3(a.aov_out, AOV_ALB, n, i, cap ? row3(ms, M_BASE_COLOR) : zero3());
     const bool emit_now = cap && (m[M_HAS_EMISSION] > 0.0f);
-    rad = rad + (emit_now ? thr * row3(m, M_EMISSION_COLOR) : zero3());
+    V3 le0 = row3(m, M_EMISSION_COLOR);
+    if constexpr (kTex) {
+      if (emit_now) le0 = emission_at(a, m, tex_u, tex_v);
+    }
+    rad = rad + (emit_now ? thr * le0 : zero3());
     alive = alive && !emit_now;
   }
 
@@ -354,7 +475,7 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
   // directions as computed), the light ray's pdf, the stale state. Work
   // whose results the body masks away for it sits behind `alive`.
   const V3 wo = world_to_local(-dir, tangent, n_s, bitangent);
-  const auto bsdf = shading_bsdf<kFull>(a, m, wo, entering, ft.lobe_mask);
+  const auto bsdf = shading_bsdf<kFull>(a, ms, wo, entering, ft.lobe_mask);
   const V3 shadow_origin = ray_origin_offset(x, n_g);
   const float shadow_tmax = alive ? RAY_TMAX : -1.0f;
   float* pd = a.pending_out;
@@ -518,19 +639,24 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
 template <bool kRich>
 __global__ void __launch_bounds__(kBlock, kRich ? kMegaBlocksRich : kMegaBlocksPlain)
     k_mega(const ShadeArgs a) {
-  mega_body<kRich, false>(a);
+  mega_body<kRich, false, false>(a);
 }
 
 __global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full(const ShadeArgs a) {
-  mega_body<true, true>(a);
+  mega_body<true, true, false>(a);
 }
 
-template <bool kRich>
+__global__ void __launch_bounds__(kBlock, kMegaBlocksTex) k_mega_tex(const ShadeArgs a) {
+  mega_body<true, true, true>(a);
+}
+
+// kTex implies kRich
+template <bool kRich, bool kTex>
 __global__ void __launch_bounds__(kBlock) k_final(const ShadeArgs a) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const long long n = a.n;
-  V3 rad = resolve_pending<kRich>(a, i, ld3(a.state_in, ST_RAD, n, i));
+  V3 rad = resolve_pending<kRich, kTex>(a, i, ld3(a.state_in, ST_RAD, n, i));
   st3(a.rad_out, 0, n, i, finite3(rad) ? rad : zero3());  // NaN scrub (pt.cu:474-478)
 }
 
@@ -544,7 +670,9 @@ extern "C" int fh_raygen(const ShadeArgs* a, cudaStream_t stream) {
 }
 
 extern "C" int fh_mega(const ShadeArgs* a, cudaStream_t stream) {
-  if (needs_full(a))
+  if (a->tex_mask != 0)
+    k_mega_tex<<<grid(a->n), kBlock, 0, stream>>>(*a);
+  else if (needs_full(a))
     k_mega_full<<<grid(a->n), kBlock, 0, stream>>>(*a);
   else if (needs_rich(a))
     k_mega<true><<<grid(a->n), kBlock, 0, stream>>>(*a);
@@ -554,9 +682,11 @@ extern "C" int fh_mega(const ShadeArgs* a, cudaStream_t stream) {
 }
 
 extern "C" int fh_final(const ShadeArgs* a, cudaStream_t stream) {
-  if (needs_rich(a))
-    k_final<true><<<grid(a->n), kBlock, 0, stream>>>(*a);
+  if (a->tex_mask != 0)
+    k_final<true, true><<<grid(a->n), kBlock, 0, stream>>>(*a);
+  else if (needs_rich(a))
+    k_final<true, false><<<grid(a->n), kBlock, 0, stream>>>(*a);
   else
-    k_final<false><<<grid(a->n), kBlock, 0, stream>>>(*a);
+    k_final<false, false><<<grid(a->n), kBlock, 0, stream>>>(*a);
   return (int)cudaGetLastError();
 }

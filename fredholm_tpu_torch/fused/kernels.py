@@ -16,11 +16,13 @@ only; for CUDA tensors they launch the kernel or raise. The CUDA BSDF
 has all seven lobes of cbsdf.ALL_LOBES; a config whose `lobes_on` holds
 a name without a lobe bit (the thin film, which routes to the wavefront
 integrator) raises NotImplementedError before any launch. Mega runs in
-one of three variants (csrc/shade.cu): plain (constant sky, no sun,
-diffuse_r only), rich (Hosek sky, sun, metal and specular) and full (any
-of coat, transmission, sheen and diffuse_t); LAUNCHES counts every mega
-launch under "mega" and also under "mega_plain", "mega_rich" or
-"mega_full".
+one of four variants (csrc/shade.cu): plain (constant sky, no sun,
+diffuse_r only), rich (Hosek sky, sun, metal and specular), full (any of
+coat, transmission, sheen and diffuse_t) and tex (any texture kind, with
+every feature of the full one; the mega and final kernels then fetch the
+texels from dev["tex_runs"]); LAUNCHES counts every mega launch under
+"mega" and also under "mega_plain", "mega_rich", "mega_full" or
+"mega_tex".
 """
 
 from __future__ import annotations
@@ -53,9 +55,17 @@ def _lobe_mask(cfg: pf.FusedConfig) -> int:
     return sum(1 << k for k, lobe in enumerate(cbsdf.ALL_LOBES) if lobe in cfg.lobes_on)
 
 
+def _tex_mask(cfg: pf.FusedConfig) -> int:
+    """Bit k set for texture kind pf.TEX_KINDS[k] (csrc/common.cuh TEX_*)."""
+    return sum(1 << k for k, kind in enumerate(pf.TEX_KINDS) if kind in cfg.tex_kinds)
+
+
 def mega_variant(cfg: pf.FusedConfig) -> str:
     """The mega variant csrc/shade.cu `fh_mega` launches for cfg
-    (`needs_full`, `needs_rich`): "full", "rich" or "plain"."""
+    (`tex_mask`, `needs_full`, `needs_rich`): "tex", "full", "rich" or
+    "plain"."""
+    if cfg.tex_kinds:
+        return "tex"
     if any(lobe in FULL_LOBES for lobe in cfg.lobes_on):
         return "full"
     if any(lobe != "diffuse_r" for lobe in cfg.lobes_on) \
@@ -106,6 +116,7 @@ def _args(cfg: pf.FusedConfig, sv, usv, n_spp, **ptrs) -> _build.ShadeArgs:
     a.max_depth, a.n_lights = cfg.max_depth, cfg.n_lights
     a.lobe_mask = _lobe_mask(cfg)
     a.sky_mode, a.has_dl = cfg.sky_mode, int(cfg.has_dl)
+    a.tex_mask = _tex_mask(cfg)
     for k, v in ptrs.items():
         setattr(a, k, v)
     return a
@@ -146,16 +157,18 @@ def _traced_ptrs(tr: pf.Traced, n: int, n_blocks: int) -> Dict:
 
 
 def _tables_ptrs(tables: Dict):
-    ft, mt, lt = (tables[k] for k in ("fused_table", "fused_mat_table", "light_table"))
-    for name, t, cols in (("fused_table", ft, pf.GEOM_COLS),
-                          ("fused_mat_table", mt, pf.MAT_COLS),
-                          ("light_table", lt, 24)):
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols \
+    ft, mt, lt, tr = (tables[k] for k in ("fused_table", "fused_mat_table", "light_table",
+                                          "tex_runs"))
+    for name, t, cols, dt in (("fused_table", ft, pf.GEOM_COLS, torch.float32),
+                              ("fused_mat_table", mt, pf.MAT_COLS, torch.float32),
+                              ("light_table", lt, 24, torch.float32),
+                              ("tex_runs", tr, 16, torch.int32)):
+        if t.dtype != dt or t.dim() != 2 or t.shape[1] != cols \
                 or not t.is_contiguous() or t.device.type != "cuda":
-            raise ValueError(f"{name} must be a contiguous CUDA float32 [*, {cols}]")
+            raise ValueError(f"{name} must be a contiguous CUDA {dt} [*, {cols}]")
     return dict(fused_table=ft.data_ptr(), mat_table=mt.data_ptr(),
                 light_table=lt.data_ptr(), n_faces=ft.shape[0],
-                n_mats=mt.shape[0])
+                n_mats=mt.shape[0], tex_runs=tr.data_ptr(), n_tex_runs=tr.shape[0])
 
 
 def _rays_ptrs(rays: torch.Tensor, n_blocks: int, n: int):

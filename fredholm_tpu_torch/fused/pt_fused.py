@@ -31,8 +31,16 @@ fused_table. FREDHOLM_COMPACT packs live rays ahead of each trace
 uint32 planes (n_spp, sample_idx, usv) are int64 tensors (core/rng.py).
 Lane i is pixel i (no swizzle; the whole frame is one band).
 
-Envelope: constant or Hosek sky, optional directional light, no textures
-or alpha, <= MAX_KERNEL_LIGHTS area lights; the Renderer raises
+Textures ride the fetch of the hit attributes (`fetch_texture_planes`,
+the reference's gather-stage fetch, pt_fused.py:534): each kind in
+`FusedConfig.tex_kinds` adds planes tx_<kind>_* to the attributes of the
+radiance hit (and of the light ray's hit, for the emission texture), which
+mega_body applies elementwise: the shading-parameter overrides, bump and
+normal mapping, and the textured emission. The CUDA kernel fetches the
+texels itself (csrc/shade.cu `k_mega_tex`).
+
+Envelope: constant or Hosek sky, optional directional light, no alpha
+cutout, <= MAX_KERNEL_LIGHTS area lights; the Renderer raises
 NotImplementedError naming what is missing.
 """
 
@@ -45,7 +53,8 @@ import numpy as np
 import torch
 
 from ..core.rng import MASK, mul32, u32, xxhash32
-from ..scene.device import COL, GEOM_COLS, GEOM_COLS_USED, MAT_COLS
+from ..scene.device import COL, GEOM_COLS, GEOM_COLS_USED, MAT_COLS, TEX_KINDS
+from ..scene.texture import sample_texture_hdr
 from . import cbsdf
 from .cmappings import (
     draw_cmj_2d,
@@ -145,8 +154,8 @@ def _sv3(sv, base) -> V3:
 
 
 class FusedConfig(NamedTuple):
-    """Static pipeline config (pt_fused.py:300-344 without IBL and
-    textures, which the port does not have yet)."""
+    """Static pipeline config (pt_fused.py:300-344 without IBL, which the
+    port does not have yet)."""
 
     width: int
     height: int
@@ -157,6 +166,9 @@ class FusedConfig(NamedTuple):
     has_dl: bool = False
     # wavefront compaction around the traces (experimental/compact.py)
     compact: str = "0"
+    # texture kinds any scene material uses (a subset of TEX_KINDS, in its
+    # order); empty: no texture fetch at all
+    tex_kinds: tuple = ()
 
     @property
     def has_area(self) -> bool:
@@ -357,8 +369,102 @@ def _shading_params_from_attr(attr) -> Dict:
     }
 
 
+def fetch_texture_planes(runs, cfg: FusedConfig, attrs: Dict, w1, w2) -> None:
+    """The gather stage's texture fetch (pt_fused.py:534-584): for each
+    kind in cfg.tex_kinds, add planes tx_<kind>_{has,r,g,b} (heightmap:
+    tx_heightmap_{has,dfdu,dfdv}) to attrs, sampled at the hit's
+    interpolated uv with the header in the material row's tx_<kind>
+    columns. runs: the scene's [R, 16] texel runs (dev["tex_runs"])."""
+    if not cfg.tex_kinds:
+        return
+    w0 = 1.0 - w1 - w2
+    u = w0 * attrs[COL["uv0"]] + w1 * attrs[COL["uv1"]] + w2 * attrs[COL["uv2"]]
+    v = w0 * attrs[COL["uv0"] + 1] + w1 * attrs[COL["uv1"] + 1] + w2 * attrs[COL["uv2"] + 1]
+    for kind in cfg.tex_kinds:
+        base = COL["tx_" + kind]
+        tid = attrs[base]
+        hdr = tuple(attrs[base + i] for i in range(1, 6))
+        has = torch.where(tid >= 0.0, 1.0, 0.0)
+        if kind == "heightmap":
+            # bump mapping's forward differences (pt.cu:710-725): taps at
+            # uv, uv + (1/w, 0) and uv + (0, 1/h). A material without a
+            # heightmap takes a step of 0 where the reference divides by
+            # its header (ROADMAP Queue C item 4): its planes are masked
+            # either way
+            du = torch.where(hdr[1] > 0.0, 1.0 / hdr[1], 0.0)
+            dv = torch.where(hdr[2] > 0.0, 1.0 / hdr[2], 0.0)
+            h0 = sample_texture_hdr(runs, u, v, hdr)[0]
+            hdu = sample_texture_hdr(runs, u + du, v, hdr)[0]
+            hdv = sample_texture_hdr(runs, u, v + dv, hdr)[0]
+            attrs["tx_heightmap_has"] = has
+            attrs["tx_heightmap_dfdu"] = hdu - h0
+            attrs["tx_heightmap_dfdv"] = hdv - h0
+            continue
+        rgba = sample_texture_hdr(runs, u, v, hdr)
+        attrs["tx_" + kind + "_has"] = has
+        attrs["tx_" + kind + "_r"] = rgba[0]
+        attrs["tx_" + kind + "_g"] = rgba[1]
+        attrs["tx_" + kind + "_b"] = rgba[2]
+
+
+def _apply_tex_overrides(cfg: FusedConfig, sp: Dict, attrs) -> None:
+    """fill_shading_params' texture overrides (pt_fused.py:587-650) from
+    the fetched planes."""
+    kinds = cfg.tex_kinds
+    if not kinds:
+        return
+
+    def has(k):
+        return attrs["tx_" + k + "_has"] > 0.0
+
+    def c3(k):
+        return V3(attrs["tx_" + k + "_r"], attrs["tx_" + k + "_g"], attrs["tx_" + k + "_b"])
+
+    def c1(k, ch="r"):
+        return attrs["tx_" + k + "_" + ch]
+
+    if "base_color" in kinds:
+        sp["base_color"] = where3(has("base_color"), c3("base_color"), sp["base_color"])
+    if "specular_color" in kinds:
+        sp["specular_color"] = where3(has("specular_color"), c3("specular_color"),
+                                      sp["specular_color"])
+    if "specular_roughness" in kinds:
+        sp["specular_roughness"] = torch.where(
+            has("specular_roughness"), torch.clamp(c1("specular_roughness"), 0.01, 1.0),
+            sp["specular_roughness"])
+    if "metalness" in kinds:
+        sp["metalness"] = torch.where(has("metalness"), c1("metalness"), sp["metalness"])
+    if "metallic_roughness" in kinds:
+        # glTF packing (pt.cu:230-236): g = roughness, b = metalness
+        h = has("metallic_roughness")
+        sp["specular_roughness"] = torch.where(
+            h, torch.clamp(c1("metallic_roughness", "g"), 0.01, 1.0), sp["specular_roughness"])
+        sp["metalness"] = torch.where(
+            h, torch.clamp(c1("metallic_roughness", "b"), 0.0, 1.0), sp["metalness"])
+    if "coat" in kinds:
+        sp["coat"] = torch.where(has("coat"), torch.clamp(c1("coat"), 0.0, 1.0), sp["coat"])
+    if "coat_roughness" in kinds:
+        # reference quirk, mirrored: channel .g, not .r (pt_fused.py:644)
+        sp["coat_roughness"] = torch.where(
+            has("coat_roughness"), torch.clamp(c1("coat_roughness", "g"), 0.0, 1.0),
+            sp["coat_roughness"])
+
+
+def emission_from_attrs(cfg: FusedConfig, attrs) -> V3:
+    """Emission with the emission-texture override (pt_fused.py:652-666)."""
+    le = _attr3(attrs, "emission_color")
+    if "emission" in cfg.tex_kinds:
+        le = where3(attrs["tx_emission_has"] > 0.0,
+                    V3(attrs["tx_emission_r"], attrs["tx_emission_g"], attrs["tx_emission_b"]),
+                    le)
+    return le
+
+
 def _select_light(light_table, n_lights: int, u1):
-    """Light-row select by sampled index (pt.cu:282-322 head)."""
+    """Light-row select by sampled index (pt.cu:282-322 head). The row's
+    le is the material's untextured emission_color: NEE toward an
+    emission-textured light sees no texture, as in the reference
+    (pt_fused.py:975)."""
     idx = torch.clamp((u1 * n_lights).to(torch.int64), 0, max(n_lights - 1, 0))
     rows = light_table[idx]
 
@@ -404,7 +510,7 @@ def _resolve_pending(cfg: FusedConfig, sv, rad: V3, resolve: Dict) -> V3:
         l_emissive = (la[COL["has_emission"]] > 0.0) & (dot(-ldir, l_n) > 0.0)
         hit_light = l_hit & l_emissive
 
-        le_hit = _attr3(la, "emission_color")
+        le_hit = emission_from_attrs(cfg, la)
         le = where3(l_hit, where3(hit_light, le_hit, z3), le_miss)
 
         to_p = l_p - resolve["l_o"]
@@ -484,7 +590,34 @@ def mega_body(cfg: FusedConfig, d: int, sv, usv, image_idx, n_spp,
     n_g = V3(n_g.x * flip, n_g.y * flip, n_g.z * flip)
     tangent, bitangent = orthonormal_basis(n_s)
 
+    # bump, then normal mapping (pt_fused.py:837-872), from the fetched
+    # planes
+    if "heightmap" in cfg.tex_kinds:
+        use_h = rattr["tx_heightmap_has"] > 0.0
+        t_b = normalize(tangent + vsplat(rattr["tx_heightmap_dfdu"]) * n_s)
+        b_b = normalize(bitangent + vsplat(rattr["tx_heightmap_dfdv"]) * n_s)
+        n_b = normalize(cross(t_b, b_b))
+        p_tangent = where3(use_h, t_b, tangent)
+        p_bitangent = where3(use_h, b_b, bitangent)
+        p_n_s = where3(use_h, n_b, n_s)
+    else:
+        p_tangent, p_bitangent, p_n_s = tangent, bitangent, n_s
+    if "normalmap" in cfg.tex_kinds:
+        use_n = rattr["tx_normalmap_has"] > 0.0
+        # a tangent-space map with +Z normal in a +Y local frame: the
+        # decoded (x, y, z) goes in as (x, z, y), on the UN-perturbed frame
+        n_m = normalize(local_to_world(
+            V3(rattr["tx_normalmap_r"] * 2.0 - 1.0, rattr["tx_normalmap_b"] * 2.0 - 1.0,
+               rattr["tx_normalmap_g"] * 2.0 - 1.0),
+            tangent, n_s, bitangent))
+        p_n_s = where3(use_n, n_m, p_n_s)
+        t_m, b_m = orthonormal_basis(p_n_s)
+        p_tangent = where3(use_n, t_m, p_tangent)
+        p_bitangent = where3(use_n, b_m, p_bitangent)
+    tangent, bitangent, n_s = p_tangent, p_bitangent, p_n_s
+
     sp = _shading_params_from_attr(rattr)
+    _apply_tex_overrides(cfg, sp, rattr)
 
     aovs = None
     if d == 0:
@@ -500,7 +633,7 @@ def mega_body(cfg: FusedConfig, d: int, sv, usv, image_idx, n_spp,
         }
         emissive = rattr[COL["has_emission"]] > 0.0
         emit_now = capture & emissive
-        le0 = _attr3(rattr, "emission_color")
+        le0 = emission_from_attrs(cfg, rattr)
         rad = rad + where3(emit_now, thr * le0, z3)
         alive = alive & ~emit_now
 
@@ -729,13 +862,16 @@ class Traced(NamedTuple):
             return _blk(self.occ, b, n)
         return _blk(self.hits["prim"], b - k, n) >= 0
 
-    def closest(self, b: int, n: int, tables: Dict):
-        """(hit dict, attrs) of ray block b, which rode the closest trace."""
+    def closest(self, b: int, n: int, tables: Dict, cfg: FusedConfig):
+        """(hit dict, attrs) of ray block b, which rode the closest trace;
+        attrs carry the texture planes of cfg.tex_kinds."""
         j = b - self.n_occ(n)
         h = {k: _blk(self.hits[k], j, n) for k in ("t", "prim", "u", "v")}
         h["hit"] = h["prim"] >= 0
         geom = None if self.geom is None else _blk(self.geom, j, n)
-        return h, _attrs(tables, h["prim"], geom)
+        attrs = _attrs(tables, h["prim"], geom)
+        fetch_texture_planes(tables.get("tex_runs"), cfg, attrs, h["u"], h["v"])
+        return h, attrs
 
 
 def _make_resolve(cfg, tables, blocks, n, rays, pending, tr: Traced):
@@ -751,7 +887,7 @@ def _make_resolve(cfg, tables, blocks, n, rays, pending, tr: Traced):
         "l_hit": tr.occluded(li, n),
     }
     if cfg.has_area:
-        lhit, resolve["lattr"] = tr.closest(li, n, tables)
+        lhit, resolve["lattr"] = tr.closest(li, n, tables, cfg)
         resolve["l_u"] = lhit["u"]
         resolve["l_v"] = lhit["v"]
         resolve["l_o"] = prev_rays["light"][0]
@@ -845,7 +981,7 @@ def mega_twin(cfg: FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     n = state.shape[1]
     lane = _lane_index(cfg, state.device)
     blocks = ("rad",) if d == 0 else cfg.blocks
-    rhit, rattr = tr.closest(blocks.index("rad"), n, tables)
+    rhit, rattr = tr.closest(blocks.index("rad"), n, tables, cfg)
     resolve = (_make_resolve(cfg, tables, blocks, n, rays, pending, tr)
                if d > 0 else {})
     st, rays_d, pend, aovs = mega_body(
@@ -945,6 +1081,7 @@ def make_config(dev: Dict, params: Dict) -> FusedConfig:
         sky_mode=params.get("sky_mode", SKY_CONSTANT),
         has_dl="directional_light" in params,
         compact=params.get("compact", "0"),
+        tex_kinds=tuple(dev.get("tex_kinds", ())),
     )
 
 

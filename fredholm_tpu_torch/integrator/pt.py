@@ -14,8 +14,9 @@ Traces go through the kernel wrappers: dense scenes B1 (closest hit,
 accel/dense.py) and B3 (any hit), clustered scenes B4/B5
 (accel/clustered.py), whose hit slots key the B6 attribute fetch
 (fused/slot_fetch.py). The rest is plain PyTorch, as the reference
-computes it in jnp. Opaque scenes only: textures, alpha and normal maps
-are refused at `Renderer.set_scene`, so the shading frame is the
+computes it in jnp. Untextured scenes only: `render_sample` raises on a
+scene with texture kinds (they render through the fused pipeline) and
+`Renderer.set_scene` refuses alpha cutout, so the shading frame is the
 interpolated normal's.
 
 The pixel swizzle of the reference only reorders lanes (every draw is
@@ -270,6 +271,13 @@ def render_sample(dev: Dict, params: Dict, n_spp) -> Dict:
     position, normal, depth, texcoord, albedo), each [N, ...], NaN/Inf
     scrubbed like pt.cu:469-478, and the counters n_path_vertices and
     n_lane_slots (float32 scalars)."""
+    if dev.get("tex_kinds"):
+        raise NotImplementedError(
+            f"the wavefront integrator has no textures yet (the textured "
+            f"fill_shading_params and apply_normal_mapping, pt.py:335-384, are not ported); "
+            f"this scene's texture kinds {tuple(dev['tex_kinds'])} render through the fused "
+            f"pipeline: keep use_fused, the sobol_cmj sampler, no thin film and <= 16 "
+            f"area lights")
     width, height = params["width"], params["height"]
     n = width * height
     max_depth = params["max_depth"]

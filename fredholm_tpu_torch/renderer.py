@@ -14,7 +14,9 @@ Two integrators, routed as the reference's `_config` routes them
 (renderer.py:523-531): the fused pipeline (fused/pt_fused.py) by default,
 the wavefront integrator (integrator/pt.py `render_sample`) where
 `use_fused` is False, `sampler_mode` is "bluenoise", a material has a
-thin film, or the scene has more than 16 area lights.
+thin film, or the scene has more than 16 area lights. Textured scenes
+render through the fused pipeline only: routed to the wavefront, they
+raise NotImplementedError, as do scenes with alpha cutout.
 
 Left out on purpose (TPU scheduling devices that only re-order work):
 row bands, spp chunking, pixel swizzle and the (w*h) % 128 gate.
@@ -61,18 +63,27 @@ def _scene_lobes(scene: Scene) -> tuple:
     return tuple(lobes)
 
 
+def _scene_has_alpha(scene: Scene) -> bool:
+    """True when a material can cut out through an alpha texture or a
+    base-color texture with alpha < 128 (renderer.py:137-149)."""
+    mats = scene.materials or []
+    if any(m.alpha_texture_id >= 0 for m in mats):
+        return True
+    for m in mats:
+        tid = m.base_color_texture_id
+        if 0 <= tid < len(scene.textures):
+            data = scene.textures[tid].data
+            if data.shape[-1] == 4 and (data[..., 3] < 128).any():
+                return True
+    return False
+
+
 def _check_envelope(scene: Scene) -> None:
     """Raise NotImplementedError naming what the port does not have yet."""
-    if scene.textures or any(
-        getattr(m, k) >= 0 for m in scene.materials
-        for k in ("base_color_texture_id", "specular_color_texture_id",
-                  "specular_roughness_texture_id", "metalness_texture_id",
-                  "metallic_roughness_texture_id", "coat_texture_id",
-                  "coat_roughness_texture_id", "emission_texture_id",
-                  "heightmap_texture_id", "normalmap_texture_id",
-                  "alpha_texture_id")
-    ):
-        raise NotImplementedError("textures and alpha cutout are not ported yet")
+    if _scene_has_alpha(scene):
+        raise NotImplementedError(
+            "alpha cutout (an alpha texture, or a base-color texture with alpha < 128) is "
+            "not ported yet: it changes the trace (pt.py:159-208)")
 
 
 class Renderer:

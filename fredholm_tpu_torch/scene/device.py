@@ -1,7 +1,7 @@
 """Host scene -> device tensors.
 
-Port of fredholm_tpu/scene/device.py:84-189 (without the skip-link BVH,
-textures and instanced scenes) plus the fused table builders of
+Port of fredholm_tpu/scene/device.py:84-189 (without the skip-link BVH
+and instanced scenes) plus the fused table builders of
 fredholm_tpu/fused/pt_fused.py:139-234. Tables are assembled in numpy,
 byte-identical to the reference's numpy path, then uploaded once:
 
@@ -14,6 +14,12 @@ byte-identical to the reference's numpy path, then uploaded once:
                                        (accel/clustered.py; F > 1024)
   slot_attrs       [32, K*128]    f32  geometry in slot order
                                        (fused/slot_fetch.py; F > 1024)
+  tex_runs         [R, 16]        i32  texel runs, uint32 bits, of every
+                                       texture and the white fallback
+                                       (scene/texture.py)
+
+and `tex_kinds`, the TEX_KINDS any material references (a tuple: the
+fused pipeline fetches exactly these),
 
 and, for the wavefront integrator (integrator/pt.py) on every scene, the
 reference's per-face and per-light SoA (device.py:143-162):
@@ -44,6 +50,7 @@ from ..accel.cluster import TLAS, build_tlas, extract_hierarchy
 from ..accel.clustered import prepare_clustered
 from ..accel.dense import MAX_FACES as DENSE_MAX_FACES
 from ..fused.slot_fetch import build_slot_attrs
+from .texture import pack_textures
 from .types import Scene, materials_to_soa
 
 # the wavefront integrator's tables (module docstring)
@@ -93,6 +100,13 @@ def _col_layout():
 
 COL, GEOM_COLS_USED, GEOM_COLS, N_COLS = _col_layout()
 MAT_COLS = N_COLS - GEOM_COLS
+
+
+def tex_kinds(materials: Dict[str, np.ndarray]) -> tuple:
+    """The texture kinds any material references, in TEX_KINDS order, from
+    the materials' SoA (the reference's renderer.py:152-163
+    `_scene_tex_kinds`)."""
+    return tuple(k for k in TEX_KINDS if (np.asarray(materials[k + "_texture_id"]) >= 0).any())
 
 
 def world_face_data(scene: Scene) -> Dict[str, np.ndarray]:
@@ -254,14 +268,14 @@ def build_clustered_tlas(verts: np.ndarray) -> TLAS:
 
 
 def build_host_tables(scene: Scene) -> Dict:
-    """numpy tables: {fused_table, fused_mat_table, light_table}, the
-    wavefront's face, material and light SoA, tri_soa (dense scenes) or
-    tlas and slot_attrs (clustered scenes), and n_lights / n_faces."""
+    """numpy tables: {fused_table, fused_mat_table, light_table,
+    tex_runs}, the wavefront's face, material and light SoA, tri_soa
+    (dense scenes) or tlas and slot_attrs (clustered scenes), and
+    n_lights / n_faces / tex_kinds."""
     if not scene.is_valid():
         raise ValueError("invalid scene")
     n_faces = int(scene.n_faces())
-    if scene.textures:
-        raise NotImplementedError("textured scenes are not ported yet")
+    tex = pack_textures(scene.textures)
     fd = world_face_data(scene)
     mats = materials_to_soa(scene.materials)
     n_mats = len(scene.materials) if scene.materials else 1
@@ -277,17 +291,18 @@ def build_host_tables(scene: Scene) -> Dict:
         "face_uvs": fd["uvs"],
         "face_mat": mat_ids,
         "materials": mats,
-        # no textures: only the fallback white header row
-        "tex_header": np.asarray([[0.0, 1.0, 1.0, 1.0, 0.0]], np.float32),
+        "tex_header": tex["header"],
         **lsoa,
     }
     out = {
         "fused_table": build_fused_table(np_dev),
         "fused_mat_table": build_fused_mat_table(np_dev),
         "light_table": build_light_table(np_dev),
+        "tex_runs": tex["runs"].view(np.int32),
         **{k: np_dev[k] for k in _WAVEFRONT_KEYS},
         "n_lights": int(lights.shape[0]),
         "n_faces": n_faces,
+        "tex_kinds": tex_kinds(mats),
     }
     if n_faces <= DENSE_MAX_FACES:
         out["tri_soa"] = tri_soa_np(fd["verts"])
@@ -302,8 +317,10 @@ def build_device_scene(scene: Scene, device) -> Dict:
     """Scene -> dict of tensors on `device` (see module docstring)."""
     host = build_host_tables(scene)
     n_lights, n_faces = host.pop("n_lights"), host.pop("n_faces")
+    kinds = host.pop("tex_kinds")
     tlas = host.pop("tlas", None)
     dev = _upload(host, n_lights, n_faces, device)
+    dev["tex_kinds"] = kinds
     if tlas is not None:
         dev["clusters"] = prepare_clustered(tlas, device)
     return dev
@@ -319,11 +336,17 @@ def dev_from_reference(np_dev: Dict, device) -> Dict:
         [np.asarray(np_dev["tri_soa"][k], np.float32).reshape(1, -1)
          for k in _TRI_KEYS]
     )
+    # the reference's texture atlas where given (its "textures" entry),
+    # else the fallback texture alone
+    runs = np_dev["textures"]["runs"] if "textures" in np_dev else pack_textures([])["runs"]
     tables = {
         "fused_table": np.asarray(np_dev["fused_table"], np.float32),
         "fused_mat_table": np.asarray(np_dev["fused_mat_table"], np.float32),
         "light_table": np.asarray(np_dev["light_table"], np.float32),
         "tri_soa": tri,
+        "tex_runs": np.asarray(runs, np.uint32).view(np.int32),
         **{k: np_dev[k] for k in _WAVEFRONT_KEYS},
     }
-    return _upload(tables, np_dev["n_lights"], np_dev["n_faces"], device)
+    dev = _upload(tables, np_dev["n_lights"], np_dev["n_faces"], device)
+    dev["tex_kinds"] = tex_kinds(np_dev["materials"])
+    return dev

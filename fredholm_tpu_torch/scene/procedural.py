@@ -5,7 +5,10 @@ Port of fredholm_tpu/scene/procedural.py (`cornell_box`, `uv_sphere`,
 their helpers) with byte-identical host arrays (tests/test_torch_render.py,
 test_torch_clustered.py and test_torch_lobes.py check), plus
 `hosek_sweep_scene`, a copy of the scene bench.py metric 2 renders
-(`bench.py:60-104` `_sweep_scene`).
+(`bench.py:60-104` `_sweep_scene`), and the texture test scenes
+(`checker_texture`, `texture_test`, `normalmap_test`,
+`emission_texture_test`; procedural.py:391-511, byte-identical,
+tests/test_torch_textures.py checks).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .types import Material, Scene
+from .types import Material, Scene, TextureImage
 
 
 def _merge_mesh(
@@ -87,7 +90,7 @@ def uv_sphere(center, radius, n_theta=16, n_phi=32):
     )
 
 
-def _scene(parts, materials) -> Scene:
+def _scene(parts, materials, textures=()) -> Scene:
     """One identity-transform Scene from (verts, normals, uvs, faces,
     material ids) parts."""
     verts, norms, uvs, idxs, mids = _merge_mesh(*(list(c) for c in zip(*parts)))
@@ -100,6 +103,7 @@ def _scene(parts, materials) -> Scene:
         material_ids=mids,
         instance_ids=np.zeros((n_faces,), np.int32),
         materials=materials,
+        textures=list(textures),
         transforms=np.eye(4, dtype=np.float32)[None],
         submesh_offsets=[0],
         submesh_n_faces=[n_faces],
@@ -323,3 +327,87 @@ def cornell_box(light_le=(10.0, 10.0, 10.0)) -> Scene:
         submesh_offsets=[0],
         submesh_n_faces=[n_faces],
     )
+
+
+# -- texture-driven test scenes (controller.h:61-66 analogs) ----------------
+
+
+def checker_texture(res: int = 64, n: int = 8, c0=(240, 240, 240), c1=(30, 30, 160),
+                    is_srgb: bool = True) -> TextureImage:
+    """Procedural checkerboard TextureImage (procedural.py:394-407)."""
+    yy, xx = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    mask = ((xx * n // res) + (yy * n // res)) % 2 == 0
+    img = np.empty((res, res, 4), np.uint8)
+    img[..., :3] = np.where(mask[..., None], np.uint8(1), np.uint8(0)) * (
+        np.asarray(c0, np.uint8) - np.asarray(c1, np.uint8)
+    ) + np.asarray(c1, np.uint8)
+    img[..., 3] = 255
+    return TextureImage(data=img, is_srgb=is_srgb)
+
+
+def _floor_sphere_scene(materials: List[Material], textures, sphere_material_id: int = 0,
+                        floor_material_id: int = 1) -> Scene:
+    """One sphere on a UV-mapped floor (procedural.py:410-433)."""
+    parts = []
+    v, nn, t, f = uv_sphere([0.0, 0.55, 0.0], 0.55, n_theta=24, n_phi=48)
+    parts.append((v, nn, t, f, np.full((len(f),), sphere_material_id, np.int32)))
+    s = 3.0
+    v, nn, t, f = _quad([-s, 0, -s], [-s, 0, s], [s, 0, s], [s, 0, -s])
+    parts.append((v, nn, t, f, np.full((len(f),), floor_material_id, np.int32)))
+    return _scene(parts, materials, textures)
+
+
+def texture_test() -> Scene:
+    """Base-color-texture scene (procedural.py:436-444): checkered sphere
+    and floor."""
+    tex = checker_texture()
+    return _floor_sphere_scene(
+        [Material(base_color_texture_id=0, specular=0.3),
+         Material(base_color_texture_id=0, specular=0.0)],
+        [tex],
+    )
+
+
+def normalmap_test() -> Scene:
+    """Normal-map scene (procedural.py:447-473): a sine-wave tangent-space
+    normal map on the sphere."""
+    res = 64
+    yy, xx = np.meshgrid(
+        np.linspace(0, 1, res, endpoint=False),
+        np.linspace(0, 1, res, endpoint=False), indexing="ij",
+    )
+    nx = 0.55 * np.sin(2 * np.pi * 6 * xx)
+    ny = 0.55 * np.sin(2 * np.pi * 6 * yy)
+    nz = np.sqrt(np.clip(1.0 - nx * nx - ny * ny, 0.0, 1.0))
+    img = np.empty((res, res, 4), np.uint8)
+    img[..., 0] = np.uint8(np.clip((nx * 0.5 + 0.5) * 255, 0, 255))
+    img[..., 1] = np.uint8(np.clip((ny * 0.5 + 0.5) * 255, 0, 255))
+    img[..., 2] = np.uint8(np.clip((nz * 0.5 + 0.5) * 255, 0, 255))
+    img[..., 3] = 255
+    nm = TextureImage(data=img, is_srgb=False)
+    return _floor_sphere_scene(
+        [Material(specular=0.6, specular_roughness=0.15, normalmap_texture_id=0),
+         Material(specular=0.0, base_color=(0.6, 0.6, 0.6))],
+        [nm],
+    )
+
+
+def emission_texture_test() -> Scene:
+    """Emission-texture scene (procedural.py:476-511): an emissive checker
+    panel lighting a diffuse sphere in a black environment."""
+    tex = checker_texture(c0=(255, 255, 255), c1=(0, 0, 0), is_srgb=False)
+    parts = []
+    v, nn, t, f = uv_sphere([0.0, 0.55, 0.0], 0.55, n_theta=24, n_phi=48)
+    parts.append((v, nn, t, f, np.zeros((len(f),), np.int32)))
+    s = 2.0
+    v, nn, t, f = _quad([-s, 0, -s], [-s, 0, s], [s, 0, s], [s, 0, -s])
+    parts.append((v, nn, t, f, np.ones((len(f),), np.int32)))
+    # emissive panel hanging above, facing down
+    v, nn, t, f = _quad([-1, 2.2, 1], [-1, 2.2, -1], [1, 2.2, -1], [1, 2.2, 1])
+    parts.append((v, nn, t, f, np.full((len(f),), 2, np.int32)))
+    return _scene(parts, [
+        Material(specular=0.2, base_color=(0.8, 0.8, 0.8)),
+        Material(specular=0.0, base_color=(0.5, 0.5, 0.5)),
+        Material(diffuse=0.0, specular=0.0, emission=6.0,
+                 emission_color=(1.0, 0.9, 0.7), emission_texture_id=0),
+    ], [tex])

@@ -275,6 +275,12 @@ def test_cuda_lobe_envelope_raises():
     assert kernels.mega_variant(cfg._replace(has_dl=True)) == "rich"
     for lobe in ("coat", "transmission", "sheen", "diffuse_t"):
         assert kernels.mega_variant(cfg._replace(lobes_on=(lobe, "diffuse_r"))) == "full"
+    # any texture kind takes the textured variant (csrc/shade.cu tex_mask)
+    for k, kind in enumerate(tpf.TEX_KINDS):
+        tex = cfg._replace(tex_kinds=(kind,))
+        assert kernels.mega_variant(tex) == "tex" and kernels._tex_mask(tex) == 1 << k
+    assert kernels._tex_mask(cfg._replace(tex_kinds=tpf.TEX_KINDS)) == 1023
+    assert kernels._tex_mask(cfg) == 0
 
 
 _CSRC = os.path.join(os.path.dirname(tpf.__file__), "..", "csrc")
@@ -302,6 +308,10 @@ def test_cuda_header_matches_python_layout():
     full = re.search(r"#define LOBES_FULL_ONLY \(([^)]*)\)", src).group(1)
     assert [x.strip() for x in full.split("|")] == \
         ["LOBE_" + lobe.upper() for lobe in kernels.FULL_LOBES]
+    assert int(defs["M_TX0"]) == COL["tx_base_color"] - GEOM_COLS
+    for k, kind in enumerate(tpf.TEX_KINDS):
+        assert COL["tx_" + kind] - GEOM_COLS == int(defs["M_TX0"]) + int(defs["TX_COLS"]) * k
+        assert int(defs["TEX_" + kind.upper()]) == 1 << k, kind
     for k in ("ST_O", "ST_D", "ST_THR", "ST_RAD", "ST_NV", "ST_ALIVE",
               "PD_SKY", "PD_AREA", "PD_TPF", "PD_PDF_L", "PD_WI_L_Y", "PD_DL",
               "AOV_POS", "AOV_NRM", "AOV_DEPTH", "AOV_TU", "AOV_TV", "AOV_ALB"):
