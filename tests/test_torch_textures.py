@@ -160,7 +160,7 @@ def test_fused_mat_table_byte_equal(name):
 # the texture fetch and mega_body on captured planes
 
 W = H = 32
-# TEX_KINDS index k -> texture id of that kind's material
+# texture kind -> the texture (index into _kind_textures) its material uses
 KIND_TEX = {"base_color": 0, "specular_color": 1, "specular_roughness": 2, "metalness": 3,
             "metallic_roughness": 2, "coat": 3, "coat_roughness": 1, "emission": 0,
             "normalmap": 4, "heightmap": 3}

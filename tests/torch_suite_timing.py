@@ -19,8 +19,9 @@ max(2, pending // workers // 2). A test sent to a worker stays there: a
 worker that runs long tests one after another ends the run while the
 others idle. `--add K` inserts K tests of `--add-seconds` each after the
 last port test file, to see how the count moves the chunk boundaries;
-`--noise S` repeats the replay with every duration scaled by a
-lognormal factor of sigma S and prints the spread of the wall time.
+`--noise S` repeats the replay 200 times with every duration scaled by a
+lognormal factor of sigma S and prints the spread of the wall time and
+the share of replays within `--limit` seconds.
 
     python tests/torch_suite_timing.py LOG COLLECTED [--add K] [--noise S]
 """
@@ -103,6 +104,8 @@ def main():
     p.add_argument("--add", type=int, default=0)
     p.add_argument("--add-seconds", type=float, default=2.0)
     p.add_argument("--noise", type=float, default=0.0)
+    p.add_argument("--limit", type=float, default=1470.0,
+                   help="the run's time limit, for the share of noisy replays within it")
     p.add_argument("--unlogged-seconds", type=float, default=2.0,
                    help="duration of a collected test the log does not hold")
     a = p.parse_args()
@@ -139,7 +142,8 @@ def main():
         walls = sorted(replay(order, {t: v * rng.lognormvariate(0, a.noise)
                                       for t, v in dur.items()})[0] for _ in range(200))
         print(f"noise {a.noise}: median {statistics.median(walls):.0f} s, "
-              f"90th percentile {walls[180]:.0f} s")
+              f"90th percentile {walls[180]:.0f} s, "
+              f"{sum(w <= a.limit for w in walls) / len(walls):.2f} within {a.limit:.0f} s")
 
 
 if __name__ == "__main__":
