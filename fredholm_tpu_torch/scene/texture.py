@@ -13,9 +13,9 @@ srgb) as float32; the fused material table bakes each material's row per
 texture kind into its `tx_*` columns (scene/device.py), so the fetch
 takes its header from the hit's material row.
 
-`sample_texture_hdr` is the plain twin of the fetch csrc/shade.cu
-`tex_fetch` does inside the mega kernel. On the device the runs are an
-int32 tensor holding the uint32 bits.
+`sample_texture_hdr` is the plain twin of csrc/common.cuh `tex_fetch`,
+which the textured mega kernel (csrc/shade.cu `k_mega_tex`) calls. On
+the device the runs are an int32 tensor holding the uint32 bits.
 """
 
 from __future__ import annotations
