@@ -5,7 +5,7 @@ Run from the repository root:  python3 chip_smoke.py
 (`--against CSRC_DIR`, which may repeat, also times other trees' B1 and
 mega kernels in turns with this tree's: phases 1, 5 and 9, in phase 20
 mega's full variant and in phase 23 its textured one, of the trees that
-have them. A tree's
+have them, and in phase 13 their B7. A tree's
 kernels take this tree's launch-argument struct, csrc/common.cuh
 `ShadeArgs`: an older tree's copy needs its struct brought level first)
 
@@ -64,11 +64,17 @@ exits non-zero without the final `ok` line:
     with its launch counts (B1 160, B3 80, twins 0), the profiler's busy
     share and top kernels, and B3's time vs its twin beside its bound
 13. the ray-resident traversal (B7, FREDHOLM_TRAV_RESIDENT=1) at metric
-    2's bounce shapes, on a gate-on sweep's d = 1 rays (the closest block,
-    147,456 rays, and the occlusion blocks, 442,368): bit-equal to its
-    twins; hit and occlusion masks equal to B4/B5's on the same rays, prim
-    differing only at near-ties; B7 and B4/B5 timed in turns beside their
-    bounds, and B7's fixed cost (every page walked, none staged)
+    2's bounce shapes (fredholm_tpu_torch/tools/resident_steps.py): a
+    gate-on sweep's d = 1 rays (the closest block, 147,456 rays, and the
+    occlusion blocks, 442,368), its primaries, and inputs that isolate
+    fixed costs (every lane dead; one missing ray in each 256; the 256
+    d = 1 rays that want the most pages alone, and made to miss): B7
+    bit-equal to its twins on each, and so is the B7 of each tree given by
+    --against (the page-streaming design through its own arguments); hit and
+    occlusion masks equal to B4/B5's, prim differing only at near-ties;
+    the twins' counts (the bound) with their per-block and per-lane
+    spread; B7, the trees' B7 and B4/B5 timed in turns (CUDA events and
+    CUDA-graph replays)
 14. the goldens terrain_cluster, hosek_sun and metal_row with the gate on,
     and metal_row with FREDHOLM_COMPACT=1 as well; B7 launched, twins 0
 15. the resident metric: metric 2 with the gate on, with its launches per
@@ -821,8 +827,8 @@ def parse_args(argv):
                    "time its B1 and mega in turns with this tree's, on the same inputs, "
                    "at each bounce of metric 1 ([5]) and at metric 2's d = 1 ([9]), "
                    "mega's full variant at transmission_rough's d = 1 ([20]) and its "
-                   "textured one at texture's d = 1 ([23]) where the tree has them, after "
-                   "holding their outputs equal; may repeat")
+                   "textured one at texture's d = 1 ([23]) where the tree has them, and "
+                   "its B7 on [13]'s rays, after holding their outputs equal; may repeat")
     return p.parse_args(argv)
 
 
@@ -852,6 +858,7 @@ def main() -> None:
         terrain,
     )
     from fredholm_tpu_torch.tools import probe_bf16 as probe
+    from fredholm_tpu_torch.tools import resident_steps as res_steps
 
     dev = torch.device("cuda")
     print(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -870,13 +877,15 @@ def main() -> None:
     for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
         print(f"[1] ptxas {name}: {info}")
     trees = {THIS_TREE: _build.lib()}
+    tree_infos = {THIS_TREE: _build.BUILD_INFO}  # each tree's build record (ptxas)
     full_trees = [THIS_TREE]  # the trees with mega's full variant
     tex_trees = [THIS_TREE]  # the trees with mega's textured variant
     for csrc in args.against:
         info = {}
         trees[csrc] = _build.load(_build.build(os.path.abspath(csrc), info))
+        tree_infos[csrc] = info
         for name, regs in info.get("ptxas", {}).items():
-            if "dense_closest" in name or "k_mega" in name:
+            if "dense_closest" in name or "k_mega" in name or "k_resident" in name:
                 print(f"[1] ptxas {csrc} {name}: {regs}")
         if any("k_mega_full" in name for name in info.get("ptxas", {})):
             full_trees.append(csrc)
@@ -1465,8 +1474,9 @@ def main() -> None:
           f"bound {bounds3['dense_any'][0]:.4f} ms ({bounds3['dense_any'][1]})")
     phase_done(12, t0)
 
-    # ---- 13: the ray-resident traversal (B7) vs its twins and vs B4/B5 at
-    # metric 2's bounce shapes
+    # ---- 13: the ray-resident traversal (B7) at metric 2's bounce shapes:
+    # bit-equal to its twins (every tree given by --against too), masks
+    # equal to B4/B5's, timed in turns with B4/B5 and those trees
     t0 = time.perf_counter()
     gate = {clustered.RESIDENT_ENV: "1"}
     with environ(**gate):
@@ -1477,107 +1487,99 @@ def main() -> None:
             raise AssertionError("the gate-on sweep carries no resident tables")
         # the d = 1 input of a gate-on render, stage by stage as
         # render_sample_fused runs it: raygen, the coherent d = 0 trace
-        # (B4 + B6), mega at d = 0
-        p13 = rr._params(5)
-        cfg13 = pf.make_config(rdev, p13)
-        sv13, usv13 = pf.pack_scalars(p13, ns, dev)
-        n_spp13 = torch.full((ns,), 3, dtype=torch.int64, device=dev)
-        st13, si13, r0 = kernels.raygen(cfg13, sv13, usv13, n_spp13)
-        tr0 = pf.trace_stage(cfg13, rdev, r0, ns, 1, 0, coherent=True)
-        _, r13, _, _ = kernels.mega(cfg13, 0, sv13, usv13, rdev, n_spp13, si13, st13, r0, None,
-                                    tr0)
-        occ13 = r13[:, :n_occ * ns]
-        rad13 = r13[:, n_occ * ns:nb2 * ns]
-        # the stages before d = 1 do not depend on the gate
-        print(f"[13] d = 1 rays equal to [9]'s gate-off ones: {torch.equal(r13, rays)}")
-        rk = resident.intersect_closest_resident(rc, rad13)
-        ok13 = resident.intersect_any_resident(rc, occ13)
+        # (B4 + B6), mega at d = 0; the stages before d = 1 do not depend
+        # on the gate
+        rad13, occ13, prim13 = res_steps.gate_on_bounce(rr, dev)
+        print(f"[13] d = 1 rays equal to [9]'s gate-off ones: "
+              f"{torch.equal(occ13, occ_view) and torch.equal(rad13, rad_view)}")
         twin_ms = {}
-        twin_ms["resident_closest"], rt = host_ms(
+        twin_ms["resident_closest"], _ = host_ms(
             lambda: resident.intersect_closest_twin(rc, rad13))
-        twin_ms["resident_any"], ot13 = host_ms(lambda: resident.intersect_any_twin(rc, occ13))
-        for k in ("hit", "prim", "t", "u", "v"):
-            if not torch.equal(rk[k], rt[k]):
-                raise AssertionError(f"B7 closest differs from its twin in {k}: "
-                                     f"{int((rk[k] != rt[k]).sum())} lanes")
-        if not torch.equal(ok13, ot13):
-            raise AssertionError(f"B7 any-hit differs from its twin on "
-                                 f"{int((ok13 != ot13).sum())} lanes")
-        results["resident_closest"] = max((rk[k] - rt[k]).abs().max().item()
-                                           for k in ("t", "u", "v"))
-        results["resident_any"] = (ok13 != ot13).float().mean().item()
-        print(f"[13] B7 vs twin: closest {rad13.shape[1]} rays ({int(rk['hit'].sum())} hits), "
-              f"any {occ13.shape[1]} rays ({int(ok13.sum())} occluded): bit-equal; twin "
-              f"{twin_ms['resident_closest']:.1f} ms and {twin_ms['resident_any']:.1f} ms "
-              "(host clock, one call each)")
-        # the other design on the same rays
-        b4 = clustered.intersect_closest_clustered(rc, rad13)
-        b5 = clustered.intersect_any_clustered(rc, occ13)
-        h7, h4 = rk["prim"] >= 0, b4["prim"] >= 0
-        if not torch.equal(h7, h4) or not torch.equal(ok13, b5):
-            raise AssertionError(f"B7 and B4/B5 masks differ: closest "
-                                 f"{int((h7 != h4).sum())}, any {int((ok13 != b5).sum())}")
-        diff = h7 & (rk["prim"] != b4["prim"])
-        rel = (rk["t"] - b4["t"]).abs() / b4["t"].abs().clamp(min=1.0)
-        tie = diff & (rel <= TIE_REL)
-        same = h7 & ~diff
-        dt = (rk["t"] - b4["t"])[same].abs().max().item() if bool(same.any()) else 0.0
-        print(f"[13] B7 vs B4/B5 on the same rays: hit and occlusion masks equal; prim "
-              f"differs on {int(diff.sum())} lanes, {int(tie.sum())} of them near-ties "
-              f"(relative t <= {TIE_REL}); max |dt| where prim agrees {dt:.3g}")
-        if int((diff & ~tie).sum()):
-            raise AssertionError("B7 and B4 report different triangles away from a tie")
-        times13 = turns("[13]", {
-            "closest": ("B4", lambda: clustered.intersect_closest_clustered(rc, rad13),
-                        "B7", lambda: resident.intersect_closest_resident(rc, rad13)),
-            "any": ("B5", lambda: clustered.intersect_any_clustered(rc, occ13),
-                    "B7", lambda: resident.intersect_any_resident(rc, occ13)),
-        })
-        # B7's fixed cost: every block walks every page with a barrier each.
-        # Inputs that isolate it: all lanes dead (each block leaves at once),
-        # and one live lane a block whose ray misses the root box (each
-        # block tests every page box, stages none)
-        dead13 = rad13.clone()
-        dead13[6] = -1.0
-        lone13 = dead13.clone()
-        first = torch.arange(0, lone13.shape[1], resident.RES_BLOCK, device=dev)
-        lone13[0:3, first] = rc["root_aabb"][0:3, 0:1] - 1000.0
-        lone13[3:6, first] = -(3.0 ** -0.5)
-        lone13[6, first] = 1e9
-        turns("[13]", {"B7 closest floor": (
-            "all lanes dead", lambda: resident.intersect_closest_resident(rc, dead13),
-            f"one lane a block, missing ({first.numel()} blocks)",
-            lambda: resident.intersect_closest_resident(rc, lone13))})
-        if int(resident.intersect_closest_resident(rc, lone13)["hit"].sum()):
+        twin_ms["resident_any"], _ = host_ms(lambda: resident.intersect_any_twin(rc, occ13))
+        # the twins' counts (the bound) and the per-block and per-lane
+        # spread of the pages and clusters the rays want
+        st13 = {name: res_steps.twin_stats(rc, view, any_hit) for name, view, any_hit in (
+            ("d=1 closest", rad13, False), ("d=1 occlusion", occ13, True),
+            ("primaries", prim13, False))}
+        inputs13 = {"d=1 closest": (rad13, False), "d=1 occlusion": (occ13, True),
+                    "primaries": (prim13, False)}
+        floors13 = {k: (v, False) for k, v in res_steps.floor_inputs(
+            rc, rad13, st13["d=1 closest"]).items()}
+        calls13 = res_steps.tree_calls(trees, tree_infos)
+        res_steps.hold_equal("[13]", calls13, rc, {**inputs13, **floors13})
+        results["resident_closest"] = 0.0
+        results["resident_any"] = 0.0
+        # the other design on the same rays: equal hit and occlusion masks,
+        # prims differing only at near-ties (B4 takes the smallest slot)
+        for name, view in (("d=1 closest", rad13), ("primaries", prim13)):
+            rk = resident.intersect_closest_resident(rc, view)
+            b4 = clustered.intersect_closest_clustered(rc, view)
+            h7, h4 = rk["prim"] >= 0, b4["prim"] >= 0
+            if not torch.equal(h7, h4):
+                raise AssertionError(f"{name}: B7 and B4 hit masks differ on "
+                                     f"{int((h7 != h4).sum())} lanes")
+            diff = h7 & (rk["prim"] != b4["prim"])
+            rel = (rk["t"] - b4["t"]).abs() / b4["t"].abs().clamp(min=1.0)
+            tie = diff & (rel <= TIE_REL)
+            same = h7 & ~diff
+            dt = (rk["t"] - b4["t"])[same].abs().max().item() if bool(same.any()) else 0.0
+            print(f"[13] {name}: B7 and B4 hit masks equal ({int(h7.sum())} hits); prim "
+                  f"differs on {int(diff.sum())} lanes, {int(tie.sum())} of them near-ties "
+                  f"(relative t <= {TIE_REL}); max |dt| where prim agrees {dt:.3g}")
+            if int((diff & ~tie).sum()):
+                raise AssertionError("B7 and B4 report different triangles away from a tie")
+        ok13 = resident.intersect_any_resident(rc, occ13)
+        if not torch.equal(ok13, clustered.intersect_any_clustered(rc, occ13)):
+            raise AssertionError("B7 and B5 occlusion masks differ")
+        print(f"[13] d=1 occlusion: B7 and B5 occlusion masks equal ({int(ok13.sum())} "
+              "occluded)")
+        b45 = {"B4/B5": lambda c_, v_, a_: (clustered.intersect_any_clustered if a_ else
+                                             clustered.intersect_closest_clustered)(c_, v_)}
+        times13 = res_steps.time_turns("[13]", {**calls13, **b45}, rc, inputs13, rounds,
+                                       cuda_ms, graph_ms)
+        times13.update(res_steps.time_turns("[13] floor", calls13, rc, floors13, rounds,
+                                            cuda_ms, graph_ms))
+        if int(resident.intersect_closest_resident(rc, floors13[next(
+                k for k in floors13 if k.startswith("one missing"))][0])["hit"].sum()):
             raise AssertionError("a ray that misses the root box hit")
-        sc13, sa13 = {}, {}
-        resident.intersect_closest_twin(rc, rad13, sc13)
-        resident.intersect_any_twin(rc, occ13, sa13)
     blocks13 = rc.get("res_blocks", rc["blocks"])
     page_bytes = 4 * blocks13.shape[0] * resident.P_CL * 128
     bounds13 = {}
-    for name, st_, view, out_b in (("resident_closest", sc13, rad13, 16),
-                                   ("resident_any", sa13, occ13, 1)):
+    for name, key, view, out_b in (("d=1 closest", "resident_closest", rad13, 16),
+                                   ("d=1 occlusion", "resident_any", occ13, 1),
+                                   ("primaries", "primaries", prim13, 16)):
+        st_ = st13[name]
         entries = ", ".join(f"{k} {int(v.sum())}" for k, v in st_["read"].items())
         # each table entry the lanes' tests read, once (the twin's marks)
         n_bytes = ray_bytes(view) + out_b * view.shape[1] + st_["table_bytes"]
         n_ops = (st_["page"] + st_["cluster"] + st_["group"]) * SLAB_OPS + st_["tri"] * TRI_OPS
-        bounds13[name] = bound(n_bytes, n_ops)
+        bounds13[key] = bound(n_bytes, n_ops)
         print(f"[13] {name}: {view.shape[1]} rays, {int((view[6] > 0).sum())} live; slab tests "
               f"page {st_['page']} cluster {st_['cluster']} group {st_['group']}, triangle "
-              f"tests {st_['tri']}; distinct pages {st_['pages']} and meta columns "
-              f"{st_['meta_cols']}; staged per block of {resident.RES_BLOCK} rays: "
-              f"{st_['block_pages']} pages ({st_['block_pages'] * page_bytes / 1e9:.3f} GB) "
-              f"and {st_['block_meta_cols']} meta columns; table bytes read "
-              f"{st_['table_bytes']} (entries: {entries}); bound "
-              f"{bounds13[name][0]:.4f} ms ({bounds13[name][1]})")
-    b45 = {"closest": bounds2["clustered_closest"], "any": bounds2["clustered_any"]}
-    for name, key in (("closest", "resident_closest"), ("any", "resident_any")):
-        print(f"[13] {name}: B7 {times13[name][1]:.4f} ms (bound {bounds13[key][0]:.4f}), "
-              f"B4/B5 {times13[name][0]:.4f} ms (bound at [9]'s rays {b45[name][0]:.4f}); "
-              f"B7 / B4-B5 = {times13[name][1] / times13[name][0]:.3f}")
-    times_res = {"resident_closest": (times13["closest"][1], twin_ms["resident_closest"]),
-                 "resident_any": (times13["any"][1], twin_ms["resident_any"])}
+              f"tests {st_['tri']}; distinct pages {st_['pages']}; the page-streaming design "
+              f"stages per block of {resident.RES_BLOCK} rays {st_['block_pages']} pages "
+              f"({st_['block_pages'] * page_bytes / 1e9:.3f} GB) and "
+              f"{st_['block_meta_cols']} meta columns; table bytes read {st_['table_bytes']} "
+              f"(entries: {entries}); bound {bounds13[key][0]:.4f} ms ({bounds13[key][1]})")
+        print(f"[13] {name} spread: {json.dumps(st_['spread'])}")
+    for name, key in (("d=1 closest", "resident_closest"), ("d=1 occlusion", "resident_any"),
+                      ("primaries", "primaries")):
+        row = times13[name]
+        print(f"[13] {name}: B7 graph {row[THIS_TREE][1]:.5f} ms (bound "
+              f"{bounds13[key][0]:.4f}), B4/B5 graph {row['B4/B5'][1]:.5f} ms; B7 / B4-B5 = "
+              f"{row[THIS_TREE][1] / row['B4/B5'][1]:.3f}" + "".join(
+                  f"; {t} {row[t][1]:.5f} ms, {row[t][1] / row[THIS_TREE][1]:.3f}x this tree's"
+                  for t in trees if t != THIS_TREE))
+    times_res = {"resident_closest": (times13["d=1 closest"][THIS_TREE][0],
+                                      twin_ms["resident_closest"]),
+                 "resident_any": (times13["d=1 occlusion"][THIS_TREE][0],
+                                  twin_ms["resident_any"])}
+    # B7's rows of the kernel line also carry the graph clock and the
+    # --against trees' times
+    extra_res = {key: {"graph_ms": times13[name][THIS_TREE][1], "against": {
+        t: {"events_ms": e, "graph_ms": g} for t, (e, g) in times13[name].items()
+        if t not in (THIS_TREE, "B4/B5")}}
+        for key, name in (("resident_closest", "d=1 closest"), ("resident_any", "d=1 occlusion"))}
     phase_done(13, t0)
 
     # ---- 14: goldens with the gate on (and compaction on metal_row)
@@ -1982,7 +1984,7 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
          "launches": int(lch.get(key, 0)), "max_abs_err": results[name],
          "ms": tms[name][0], "plain_ms": tms[name][1], "bound_ms": bnd[name][0],
-         "bound_by": bnd[name][1], "library_ms": None}
+         "bound_by": bnd[name][1], "library_ms": None, **extra_res.get(name, {})}
         for name, f, rep, key, tms, bnd, lch in table
     ]
     print(f"[6] phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "

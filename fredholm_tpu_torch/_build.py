@@ -187,7 +187,7 @@ def load(lib_path: str):
         fn.restype = i
     for name in ("fh_resident_closest", "fh_resident_any"):
         fn = getattr(handle, name)
-        fn.argtypes = [vp, ll, i, vp, vp, i, i, vp, ll, vp, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, ll, i, vp, vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp]
         fn.restype = i
     handle.fh_clustered_stage_bytes.argtypes = [i, i]
     handle.fh_clustered_stage_bytes.restype = ll

@@ -17,6 +17,11 @@ occluder. Only identity single-instance scenes carry the tables; the
 reference routes the fused pipeline's incoherent traces here when
 FREDHOLM_TRAV_RESIDENT=1 (`routes`, integrator/pt.py:98-114).
 
+A ray's result depends on no other ray, so the port's kernel keeps the
+walk's order and gates but not its loops: one warp walks one ray, a
+level's records at once, each candidate tested again in turn
+(csrc/resident.cu has the design). The twins follow the loops above.
+
 Tables (prepare_resident, pallas_resident.py:67-102):
   res_meta   [16, K_pad] float32, dense by cid, K_pad a multiple of CHUNK:
              rows 0-5 the cluster box (lo.xyz, hi.xyz), row 6 its
@@ -24,6 +29,16 @@ Tables (prepare_resident, pallas_resident.py:67-102):
              page's P_CL cluster boxes) at the page's first column.
   res_blocks the triangle blocks [16, K*128] padded to whole pages, only
              when K % P_CL != 0; else the blocks are shared.
+The twins read these. The kernel reads port-only records of the same
+floats (16-byte loads, `resident_records`), and B4/B5's group and
+triangle records (accel/clustered.py `card_records`):
+  res_page   [n_pages, 1 + P_CL, 8]: the page box (lo.xyz, 0, hi.xyz, 0),
+             then each of its clusters' (lo.xyz, triangle count, hi.xyz,
+             0), from res_meta byte for byte
+  res_span   [n_spans, 8]: the union of SPAN consecutive page boxes, the
+             kernel's gate ahead of them (the union's slab test passes
+             wherever a member's does, so it skips only pages that the
+             lane's own page test would)
 
 Contract: rays are a [7, M] float32 view (rows ox, oy, oz, dx, dy, dz,
 tmax; unit column stride). Closest returns {t, prim, u, v, inst, hit},
@@ -46,7 +61,11 @@ from ..accel.clustered import RESIDENT_ENV, _inv_dir, _slab, _slab_t, walk_clust
 
 P_CL = 4      # clusters per page: the page layout; results do not depend on it
 CHUNK = 128   # meta columns streamed at a time
-RES_BLOCK = 256  # rays of one CUDA block (csrc/resident.cu kBlock); the stats count per block
+SPAN = 8      # pages a span record covers (csrc/resident.cu kSpan)
+# rays a block of csrc/resident.cu holds (kBlock); the stats count per block
+# of as many consecutive rays, the unit that the page-streaming design (the
+# first port of this kernel) staged pages for
+RES_BLOCK = 256
 
 
 def routes(c: Dict, coherent: bool) -> bool:
@@ -83,7 +102,30 @@ def prepare_resident(tlas, device) -> Dict:
         pad = (-k_total % P_CL) * CLUSTER_SIZE
         blocks = np.pad(np.asarray(tlas.blocks), ((0, 0), (0, pad)))
         out["res_blocks"] = torch.tensor(blocks, device=device)
+    n_pages = -(-k_total // P_CL)
+    out.update({k: torch.tensor(v, device=device)
+                for k, v in resident_records(meta, n_pages).items()})
     return out
+
+
+def resident_records(meta: np.ndarray, n_pages: int) -> Dict[str, np.ndarray]:
+    """The kernel's page and span records (module docstring) from the
+    [16, K_pad] meta table: its floats, regrouped."""
+    first = np.arange(n_pages) * P_CL
+    cl = meta[:, :n_pages * P_CL].reshape(16, n_pages, P_CL)
+    page = np.zeros((n_pages, 1 + P_CL, 8), np.float32)
+    page[:, 0, 0:3] = meta[8:11, first].T
+    page[:, 0, 4:7] = meta[11:14, first].T
+    page[:, 1:, 0:3] = cl[0:3].transpose(1, 2, 0)
+    page[:, 1:, 3] = cl[6]
+    page[:, 1:, 4:7] = cl[3:6].transpose(1, 2, 0)
+    n_spans = -(-n_pages // SPAN)
+    span = np.zeros((n_spans, 8), np.float32)
+    for s in range(n_spans):
+        boxes = page[s * SPAN:(s + 1) * SPAN, 0]
+        span[s, 0:3] = boxes[:, 0:3].min(0)
+        span[s, 4:7] = boxes[:, 4:7].max(0)
+    return {"res_page": page, "res_span": span}
 
 
 def _n_pages(c: Dict) -> int:
@@ -145,6 +187,16 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
         if stats is not None:
             read[key][idx] = True
 
+    if stats is not None:
+        # per block of RES_BLOCK consecutive lanes, and per lane: the pages
+        # it wants and the clusters it walks
+        n_blocks = -(-m // RES_BLOCK)
+        lane_blk = torch.arange(m, device=dev) // RES_BLOCK
+        blk_pages = torch.zeros(n_blocks, dtype=torch.int64, device=dev)
+        blk_clusters = torch.zeros(n_blocks, dtype=torch.int64, device=dev)
+        lane_pages = torch.zeros(m, dtype=torch.int64, device=dev)
+        lane_clusters = torch.zeros(m, dtype=torch.int64, device=dev)
+
     lanes_alive = torch.nonzero(alive, as_tuple=True)[0]
     for p in range(n_pages):
         c0 = p * P_CL
@@ -158,7 +210,8 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             continue
         if stats is not None:
             page_read[p] = True
-            count("block_pages", torch.unique(lanes // RES_BLOCK).numel())
+            blk_pages[torch.unique(lane_blk[lanes])] += 1
+            lane_pages[lanes] += 1
         for cid in range(c0, c0 + P_CL):
             mark("cl_count", cid)
             cnt = int(counts[cid])
@@ -171,6 +224,9 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             ln = ln[_slab(meta[0:6, cid], [x[ln] for x in o], [x[ln] for x in inv], best_t[ln])]
             if ln.numel() == 0:
                 continue
+            if stats is not None:
+                blk_clusters[torch.unique(lane_blk[ln])] += 1
+                lane_clusters[ln] += 1
             base = cid * CLUSTER_SIZE
             res, walk = walk_cluster(blocks, base, cnt, [x[ln] for x in o], [x[ln] for x in d],
                                      [x[ln] for x in inv], best_t[ln], any_hit,
@@ -202,6 +258,9 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
         stats["block_meta_cols"] = stats.get("block_meta_cols", 0) + int(blk.sum()) * CHUNK
         stats["meta_cols"] = max(stats.get("meta_cols", 0), int(blk.max()) * CHUNK)
         stats["pages"] = stats.get("pages", 0) + int(page_read.sum())
+        stats["block_pages"] += int(blk_pages.sum())
+        stats["per_block"] = {"pages": blk_pages, "clusters": blk_clusters}
+        stats["per_lane"] = {"pages": lane_pages, "clusters": lane_clusters}
         # the kernel reads row 9 (prim) of each lane's final hit; every
         # alive lane reads the root box, the tables once per entry read
         mark("prim", slot[slot >= 0])
@@ -220,7 +279,11 @@ def intersect_closest_twin(c: Dict, rays: torch.Tensor, stats=None) -> Dict:
     and the triangle tests the kernel takes ("page", "cluster", "group",
     "tri"), the triangle pages and meta columns its blocks of RES_BLOCK
     rays stage, summed over blocks ("block_pages", "block_meta_cols"),
-    the distinct pages and meta columns read ("pages", "meta_cols"),
+    per block of this call ("per_block": {"pages": the pages any of its
+    lanes wants, "clusters": the clusters any of its lanes walks}, each
+    an int64 [n_blocks]) and per lane ("per_lane": {"pages", "clusters"},
+    each [M]), the distinct pages and meta columns read ("pages",
+    "meta_cols"),
     "read" (a mask per table of the entries the lanes' tests read: page
     and cluster boxes, cluster counts, group boxes, triangles, and the
     prim row at each lane's final hit) and "table_bytes" (those entries'
@@ -241,36 +304,31 @@ def intersect_any_twin(c: Dict, rays: torch.Tensor, stats=None) -> torch.Tensor:
 
 
 def _check(c: Dict, rays: torch.Tensor) -> None:
+    """The rays, and that the tables are there and on their device. The
+    tables are checked where they are made: prepare_resident builds its
+    records from res_meta, whose shapes follow from the TLAS, and
+    prepare_clustered checks B4/B5's records (accel/clustered.py
+    `_check_tables`), as B4/B5's wrappers do."""
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
         raise ValueError(f"rays must be [7, M] float32, got {tuple(rays.shape)} {rays.dtype}")
     if rays.shape[1] < 1 or rays.stride(1) != 1:
         raise ValueError("rays must hold at least one ray, with unit column stride")
-    if "res_meta" not in c:
+    if "res_page" not in c:
         raise ValueError("no resident tables: the scene was built with the gate off "
                          f"({RESIDENT_ENV}) or has more than one instance")
-    for k in ("root_aabb", "res_meta", "blocks", "res_blocks"):
-        t = c.get(k)
-        if t is None:
-            continue
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != rays.device:
-            raise ValueError(f"table {k} must be contiguous float32 on {rays.device}")
-    meta = c["res_meta"]
-    if meta.shape[0] != 16 or meta.shape[1] % CHUNK or meta.shape[1] < _n_pages(c) * P_CL:
-        raise ValueError(f"res_meta must be [16, K_pad], K_pad a multiple of {CHUNK}")
-    if c.get("res_blocks", c["blocks"]).shape[1] < _n_pages(c) * P_CL * CLUSTER_SIZE:
-        raise ValueError("the triangle blocks must cover whole pages")
+    if c["res_page"].device != rays.device:
+        raise ValueError(f"the tables lie on {c['res_page'].device}, the rays on {rays.device}")
 
 
 def _launch(fn_name: str, count_name: str, c: Dict, rays, outs) -> None:
     lib = _build.lib()
-    blocks = c.get("res_blocks", c["blocks"])
     ptrs = [outs.get(k) for k in ("t", "prim", "u", "v", "occluded")]
     ptrs = [p.data_ptr() if p is not None else None for p in ptrs]
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = getattr(lib, fn_name)(
         rays.data_ptr(), rays.stride(0), rays.shape[1], c["root_aabb"].data_ptr(),
-        c["res_meta"].data_ptr(), c["res_meta"].shape[1], _n_pages(c),
-        blocks.data_ptr(), blocks.shape[1], *ptrs, stream,
+        c["res_span"].data_ptr(), c["res_page"].data_ptr(), c["res_page"].shape[0],
+        c["grp_rec"].data_ptr(), c["tri_rec"].data_ptr(), *ptrs, stream,
     )
     _build.check(err, count_name)
     _build.LAUNCHES[count_name] += 1

@@ -3,7 +3,15 @@ wavefront compaction, against the reference.
 
 - `prepare_resident` byte-equal to the reference's, on a mesh with whole
   pages and on one whose cluster count is not a multiple of P_CL (the
-  padded triangle blocks).
+  padded triangle blocks); the kernel's page and span records hold
+  res_meta's floats, and B4/B5's group and triangle records the blocks'.
+- The walk in turn over the kernel's records (span, page, cluster, group
+  and triangle records, float32), lane by lane in numpy: bit-equal to
+  the twins, and the twin's per-block and per-lane counts equal to the
+  unions and counts of the lanes' wanted pages and walked clusters. The
+  kernel's own walk order (csrc/resident.cu: a warp tests a level at
+  once, then each candidate again in turn) replayed the same way:
+  bit-equal to the twins.
 - The B7 twins against the reference's Pallas kernel in interpret mode,
   one call each on 512 rays (20% dead lanes, some finite tmax): hit masks
   and occlusion equal; prim equal except at near-ties (relative t within
@@ -73,7 +81,9 @@ def test_prepare_resident_byte_equal(monkeypatch):
         tlas = j_build_tlas([h], [(0, np.eye(4))])
         want = pr.prepare_resident(tlas)
         got = resident.prepare_resident(tlas, "cpu")
-        assert sorted(got) == sorted(want) and ("res_blocks" in got) == padded
+        # the reference's tables, and the kernel's records beside them
+        assert sorted(set(got) - set(want)) == ["res_page", "res_span"]
+        assert set(want) <= set(got) and ("res_blocks" in got) == padded
         for k in want:
             assert _same(got[k].numpy(), want[k]), k
         # the gate adds the same tables to the clustered ones
@@ -175,6 +185,243 @@ def test_any_twin_matches_reference(sphere_case):
     resident.intersect_closest_twin(c, rays, s_cl)
     assert 0 < s_any["tri"] < s_cl["tri"]
     assert not s_any["read"]["prim"].any() and s_any["read"]["tri"].any()
+
+
+def test_resident_records_byte_equal():
+    for h in (_sphere_blas()[0], _partial_page_blas()):
+        tlas = j_build_tlas([h], [(0, np.eye(4))])
+        c = {**prepare_clustered(tlas, "cpu"), **resident.prepare_resident(tlas, "cpu")}
+        meta = c["res_meta"].numpy()
+        page, span = c["res_page"].numpy(), c["res_span"].numpy()
+        n_pages = resident._n_pages(c)
+        assert page.shape == (n_pages, 1 + resident.P_CL, 8)
+        first = np.arange(n_pages) * resident.P_CL
+        assert _same(page[:, 0, 0:3], np.ascontiguousarray(meta[8:11, first].T))
+        assert _same(page[:, 0, 4:7], np.ascontiguousarray(meta[11:14, first].T))
+        cl = page[:, 1:].reshape(-1, 8)
+        k = cl.shape[0]
+        for words, rows in ((slice(0, 3), slice(0, 3)), (slice(3, 4), slice(6, 7)),
+                            (slice(4, 7), slice(3, 6))):
+            assert _same(cl[:, words], np.ascontiguousarray(meta[rows, :k].T))
+        assert not page[:, :, 7].any() and not page[:, 0, 3].any()
+        # a span holds the union of its pages' boxes
+        assert span.shape == (-(-n_pages // resident.SPAN), 8)
+        for s_ in range(span.shape[0]):
+            boxes = page[s_ * resident.SPAN:(s_ + 1) * resident.SPAN, 0]
+            assert _same(span[s_, 0:3], boxes[:, 0:3].min(0))
+            assert _same(span[s_, 4:7], boxes[:, 4:7].max(0))
+        # the group and triangle records the kernel reads for each cluster
+        # with triangles: the blocks' columns
+        blocks = c.get("res_blocks", c["blocks"]).numpy()
+        grp, tri = c["grp_rec"].numpy(), c["tri_rec"].numpy()
+        for cid in np.nonzero(meta[6] > 0)[0]:
+            cols = cid * 128 + np.arange(8)
+            g = grp[cid * 8:(cid + 1) * 8]
+            assert _same(g[:, 0:3], np.ascontiguousarray(blocks[10:13, cols].T))
+            assert _same(g[:, 4:7], np.ascontiguousarray(blocks[13:16, cols].T))
+            slots = cid * 128 + np.arange(int(meta[6, cid]))
+            t_ = tri[slots]
+            for words, rows in ((slice(0, 3), slice(0, 3)), (slice(3, 4), slice(9, 10)),
+                                (slice(4, 7), slice(3, 6)), (slice(8, 11), slice(6, 9))):
+                assert _same(t_[:, words], np.ascontiguousarray(blocks[rows, slots].T))
+
+
+_F = np.float32
+
+
+def _slab_np(box, o, inv, best):
+    """common.cuh `slab_box` on a record (lo.xyz, w, hi.xyz, w), float32."""
+    t1 = [(box[k] - o[k]) * inv[k] for k in range(3)]
+    t2 = [(box[4 + k] - o[k]) * inv[k] for k in range(3)]
+    tn = max(max(min(t1[0], t2[0]), min(t1[1], t2[1])), min(t1[2], t2[2]))
+    tf = min(min(max(t1[0], t2[0]), max(t1[1], t2[1])), max(t1[2], t2[2]))
+    return tn <= tf and tf >= 0 and tn <= best
+
+
+def _mt_np(o, d, rec):
+    """common.cuh `moller_trumbore` of one ray against triangle records
+    [n, 12] (v0, prim, e1, 0, e2, 0), float32 in its order: t, u, v and
+    valid, each [n]."""
+    v0, e1, e2 = rec[:, 0:3].T, rec[:, 4:7].T, rec[:, 8:11].T
+    px = d[1] * e2[2] - d[2] * e2[1]
+    py = d[2] * e2[0] - d[0] * e2[2]
+    pz = d[0] * e2[1] - d[1] * e2[0]
+    det = e1[0] * px + e1[1] * py + e1[2] * pz
+    ok = np.abs(det) > _F(1e-12)
+    inv_det = np.divide(_F(1), det, out=np.zeros_like(det), where=ok)
+    tx, ty, tz = o[0] - v0[0], o[1] - v0[1], o[2] - v0[2]
+    qx = ty * e1[2] - tz * e1[1]
+    qy = tz * e1[0] - tx * e1[2]
+    qz = tx * e1[1] - ty * e1[0]
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv_det
+    t = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv_det
+    return t, u, v, ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+
+
+def _root_clamp(c, o, inv):
+    """common.cuh `root_exit_clamp`, float32."""
+    root = c["root_aabb"].numpy()[:, 0]
+    t1 = [(root[k] - o[k]) * inv[k] for k in range(3)]
+    t2 = [(root[3 + k] - o[k]) * inv[k] for k in range(3)]
+    rtn = max(max(min(t1[0], t2[0]), min(t1[1], t2[1])), min(t1[2], t2[2]))
+    rtf = min(min(max(t1[0], t2[0]), max(t1[1], t2[1])), max(t1[2], t2[2]))
+    return rtf * _F(1.0001) + _F(1e-4) if rtn <= rtf and rtf >= 0 else _F(0)
+
+
+def _walk_lane(c, ray, any_hit):
+    """One live lane through the kernel's records (csrc/resident.cu
+    `k_resident`): its result (t, prim, u, v; any-hit: occluded), and the
+    pages and clusters whose boxes pass its gates."""
+    span, page = c["res_span"].numpy(), c["res_page"].numpy()
+    grp, tri = c["grp_rec"].numpy(), c["tri_rec"].numpy()
+    n_pages, p_cl, sp = page.shape[0], resident.P_CL, resident.SPAN
+    o, d, tmax = ray[0:3], ray[3:6], ray[6]
+    eps = _F(1e-12)
+    inv = [_F(1) / (x if abs(x) >= eps else (-eps if x < 0 else eps)) for x in d]
+    best, prim, bu, bv = min(tmax, _root_clamp(c, o, inv)), -1, _F(0), _F(0)
+    pages, clusters = set(), set()
+    for s in range(-(-n_pages // sp)):
+        if not _slab_np(span[s], o, inv, best):
+            continue
+        for p in range(s * sp, min(n_pages, (s + 1) * sp)):
+            if not _slab_np(page[p, 0], o, inv, best):
+                continue
+            pages.add(p)
+            for cl in range(p_cl):
+                rec, cid = page[p, 1 + cl], p * p_cl + cl
+                cnt = int(rec[3])
+                if cnt <= 0 or not _slab_np(rec, o, inv, best):
+                    continue
+                clusters.add(cid)
+                for g in range(-(-cnt // 16)):
+                    if not _slab_np(grp[cid * 8 + g], o, inv, best):
+                        continue
+                    ks = np.arange(g * 16, min(cnt, g * 16 + 16))
+                    t, u, v, ok = _mt_np(o, d, tri[cid * 128 + ks])
+                    for q in range(ks.shape[0]):
+                        if ok[q] and t[q] < best:
+                            if any_hit:
+                                return True, pages, clusters
+                            best, prim, bu, bv = t[q], int(tri[cid * 128 + ks[q], 3]), u[q], v[q]
+    if any_hit:
+        return False, pages, clusters
+    return (best if prim >= 0 else tmax, prim, bu, bv), pages, clusters
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_twin_block_stats_brute_force(sphere_case, any_hit):
+    c, rays, _, _ = sphere_case
+    stats = {}
+    twin = (resident.intersect_any_twin if any_hit else resident.intersect_closest_twin)(
+        c, rays, stats)
+    r = rays.numpy()
+    m = r.shape[1]
+    n_blocks = -(-m // resident.RES_BLOCK)
+    blk_pages = [set() for _ in range(n_blocks)]
+    blk_clusters = [set() for _ in range(n_blocks)]
+    lane_pages, lane_clusters = [0] * m, [0] * m
+    for i in range(m):
+        if not r[6, i] > 0:
+            res = False if any_hit else (r[6, i], -1, _F(0), _F(0))
+        else:
+            b = i // resident.RES_BLOCK
+            res, pages, clusters = _walk_lane(c, r[:, i], any_hit)
+            blk_pages[b] |= pages
+            blk_clusters[b] |= clusters
+            lane_pages[i], lane_clusters[i] = len(pages), len(clusters)
+        # bit-equal to the twin lane by lane
+        assert _same_result(twin, i, res, any_hit), i
+    assert any(blk_pages) and len(set(lane_pages)) > 2
+    for key, sets in (("pages", blk_pages), ("clusters", blk_clusters)):
+        assert stats["per_block"][key].tolist() == [len(x) for x in sets], key
+    assert stats["per_lane"]["pages"].tolist() == lane_pages
+    assert stats["per_lane"]["clusters"].tolist() == lane_clusters
+    assert stats["block_pages"] == sum(map(len, blk_pages))
+
+
+def _same_result(twin, i, res, any_hit) -> bool:
+    if any_hit:
+        return bool(twin[i]) == res
+    got = [twin[k][i].item() for k in ("t", "prim", "u", "v")]
+    return got == [float(res[0]), res[1], float(res[2]), float(res[3])]
+
+
+def _walk_warp(c, ray, any_hit):
+    """One ray through the kernel's warp walk (csrc/resident.cu `walk`):
+    64 spans, then a span's 32 (page, cluster) slots, then a cluster's
+    groups and their triangles, each level tested at once at the best t
+    of that moment; each candidate tested again in cid order at the best
+    t of its turn (a page at its first candidate cluster); a group's
+    triangles reduced to their first (t, index) minimum. Returns (t, prim,
+    u, v), or occluded."""
+    span, page = c["res_span"].numpy(), c["res_page"].numpy()
+    grp, tri = c["grp_rec"].numpy(), c["tri_rec"].numpy()
+    n_pages, sp = page.shape[0], resident.SPAN
+    n_spans = -(-n_pages // sp)
+    o, d, tmax = ray[0:3], ray[3:6], ray[6]
+    eps = _F(1e-12)
+    inv = [_F(1) / (x if abs(x) >= eps else (-eps if x < 0 else eps)) for x in d]
+    best = min(tmax, _root_clamp(c, o, inv))
+    prim, bu, bv = -1, _F(0), _F(0)
+    for s0 in range(0, n_spans, 64):
+        spans = [s for s in range(s0, min(n_spans, s0 + 64)) if _slab_np(span[s], o, inv, best)]
+        for s in spans:
+            if not _slab_np(span[s], o, inv, best):
+                continue
+            slots = [ln for ln in range(32) if s * sp + ln // 4 < n_pages
+                     and page[s * sp + ln // 4, 1 + ln % 4, 3] > 0
+                     and _slab_np(page[s * sp + ln // 4, 0], o, inv, best)
+                     and _slab_np(page[s * sp + ln // 4, 1 + ln % 4], o, inv, best)]
+            page_in, skip = -1, -1
+            for cs in slots:
+                p, rec = s * sp + cs // 4, page[s * sp + cs // 4, 1 + cs % 4]
+                if cs // 4 == skip:
+                    continue
+                if cs // 4 != page_in:
+                    page_in = cs // 4
+                    if not _slab_np(page[p, 0], o, inv, best):
+                        skip = page_in
+                        continue
+                if not _slab_np(rec, o, inv, best):
+                    continue
+                cnt, cid = int(rec[3]), s * 32 + cs
+                groups = [g for g in range(-(-cnt // 16)) if _slab_np(grp[cid * 8 + g], o, inv,
+                                                                       best)]
+                ks = np.asarray([k for k in range(cnt) if k // 16 in groups], np.int64)
+                if ks.size == 0:
+                    continue
+                t, u, v, ok = _mt_np(o, d, tri[cid * 128 + ks])
+                if any_hit:
+                    if (ok & (t < best)).any():
+                        return True
+                    continue
+                for g in groups:
+                    if not _slab_np(grp[cid * 8 + g], o, inv, best):
+                        continue
+                    cand = [(t[q], ks[q], q) for q in range(ks.size)
+                            if ks[q] // 16 == g and ok[q] and t[q] < best]
+                    if cand:
+                        _, k, q = min(cand)
+                        best, prim, bu, bv = t[q], int(tri[cid * 128 + k, 3]), u[q], v[q]
+    if any_hit:
+        return False
+    return best if prim >= 0 else tmax, prim, bu, bv
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kernel_warp_walk_matches_twin(sphere_case, any_hit):
+    """The kernel's walk order (levels tested at once, candidates tested
+    again in turn) gives the twin's bits, lane by lane."""
+    c, rays, _, _ = sphere_case
+    twin = (resident.intersect_any_twin if any_hit else resident.intersect_closest_twin)(c, rays)
+    r = rays.numpy()
+    for i in range(r.shape[1]):
+        if not r[6, i] > 0:
+            res = False if any_hit else (r[6, i], -1, _F(0), _F(0))
+        else:
+            res = _walk_warp(c, r[:, i], any_hit)
+        assert _same_result(twin, i, res, any_hit), i
 
 
 def _emissive_spheres():
