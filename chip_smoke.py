@@ -69,10 +69,12 @@ exits non-zero without the final `ok` line:
     occlusion blocks, 442,368), its primaries, and inputs that isolate
     fixed costs (every lane dead; one missing ray in each 256; the 256
     d = 1 rays that want the most pages alone, and made to miss): B7
-    bit-equal to its twins on each, and so is the B7 of each tree given by
-    --against (the page-streaming design through its own arguments); hit and
-    occlusion masks equal to B4/B5's, prim differing only at near-ties;
-    the twins' counts (the bound) with their per-block and per-lane
+    bit-equal to its twins on each, and on a mesh of two coplanar layers
+    where the kernel's in-turn group test decides results, and so is the
+    B7 of each tree given by --against (the page-streaming design through
+    its own arguments); hit and occlusion masks equal to B4/B5's, prim
+    differing only at near-ties; the twins' counts (the bound, and the
+    bound with the kernel's span gate) with their per-lane and per-block
     spread; B7, the trees' B7 and B4/B5 timed in turns (CUDA events and
     CUDA-graph replays)
 14. the goldens terrain_cluster, hosek_sun and metal_row with the gate on,
@@ -499,22 +501,42 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
 THIS_TREE = "this tree"
 
 
+def time_turns(tag, calls, rounds, show=True):
+    """{kernel: {tree: (events ms, graph ms)}}: each call of `calls`
+    ({(kernel, tree): zero-arg call}, THIS_TREE's first for each kernel)
+    timed in `rounds` turns whose order reverses each turn: CUDA events
+    around 10 back-to-back calls, and CUDA-graph replays (device time
+    alone); means of the turns."""
+    ev = {key: [] for key in calls}
+    gr = {key: [] for key in calls}
+    for rnd in range(rounds):
+        for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
+            ev[key].append(cuda_ms(calls[key], 10))
+            gr[key].append(graph_ms(calls[key]))
+    out = {}
+    for (k, t) in calls:
+        out.setdefault(k, {})[t] = (sum(ev[(k, t)]) / rounds, sum(gr[(k, t)]) / rounds)
+    if show:
+        for (k, t) in calls:
+            e, g = out[k][t]
+            first, (_, g_first) = next(iter(out[k].items()))
+            print(f"{tag} {k} {t}: events {e:.5f} ms, graph {g:.5f} ms, {g / g_first:.3f}x "
+                  f"{first}'s (turns, graph: {', '.join(f'{x:.5f}' for x in gr[(k, t)])})")
+    return out
+
+
 def tree_turns(tag, build, trees, fns, rounds):
     """{kernel: {tree: (events ms, graph ms)}}: each of fns ({kernel:
     wrapper call}) under each tree's library (`trees`: {name: library},
-    THIS_TREE's first), timed in `rounds` turns whose order reverses each
-    turn: CUDA events around 10 back-to-back calls, and CUDA-graph replays
-    (device time alone); means of the turns. Before the turns each other
-    tree's outputs are held equal to this tree's (NaN equal to NaN)."""
+    THIS_TREE's first), timed by time_turns (printed with more than one
+    tree). Before the turns each other tree's outputs are held equal to
+    this tree's (NaN equal to NaN)."""
     import torch
 
     def under(handle, fn):
         def call():
-            saved, build._lib = build._lib, handle
-            try:
+            with build.using(handle):
                 return fn()
-            finally:
-                build._lib = saved
         return call
 
     def planes(x):
@@ -535,20 +557,7 @@ def tree_turns(tag, build, trees, fns, rounds):
                 if not bool(same.all()):
                     raise AssertionError(f"{tag} {k}: tree {t} differs from this tree on "
                                          f"{int((~same).sum())} values")
-    ev = {key: [] for key in calls}
-    gr = {key: [] for key in calls}
-    for rnd in range(rounds):
-        for key in (list(calls) if rnd % 2 == 0 else list(calls)[::-1]):
-            ev[key].append(cuda_ms(calls[key], 10))
-            gr[key].append(graph_ms(calls[key]))
-    out = {k: {} for k in fns}
-    for (k, t) in calls:
-        out[k][t] = (sum(ev[(k, t)]) / rounds, sum(gr[(k, t)]) / rounds)
-        if len(trees) > 1:
-            print(f"{tag} {k} {t}: events {out[k][t][0]:.5f} ms, graph {out[k][t][1]:.5f} ms, "
-                  f"{out[k][t][1] / out[k][THIS_TREE][1]:.3f}x this tree's (turns, graph: "
-                  f"{', '.join(f'{x:.5f}' for x in gr[(k, t)])})")
-    return out
+    return time_turns(tag, calls, rounds, show=len(trees) > 1)
 
 
 def score_golden(tag, name, img, launches, want_shape):
@@ -1506,9 +1515,13 @@ def main() -> None:
         floors13 = {k: (v, False) for k, v in res_steps.floor_inputs(
             rc, rad13, st13["d=1 closest"]).items()}
         calls13 = res_steps.tree_calls(trees, tree_infos)
-        res_steps.hold_equal("[13]", calls13, rc, {**inputs13, **floors13})
-        results["resident_closest"] = 0.0
-        results["resident_any"] = 0.0
+        err13 = res_steps.hold_equal("[13]", calls13, rc, {**inputs13, **floors13})
+        results["resident_closest"] = err13["d=1 closest"][THIS_TREE]
+        results["resident_any"] = err13["d=1 occlusion"][THIS_TREE]
+        # a mesh on which the in-turn group test decides results
+        c_rt, rays_rt = res_steps.retest_case(dev)
+        res_steps.hold_equal("[13] coplanar layers", calls13, c_rt,
+                             {"closest": (rays_rt, False), "any-hit": (rays_rt, True)})
         # the other design on the same rays: equal hit and occlusion masks,
         # prims differing only at near-ties (B4 takes the smallest slot)
         for name, view in (("d=1 closest", rad13), ("primaries", prim13)):
@@ -1535,32 +1548,37 @@ def main() -> None:
               "occluded)")
         b45 = {"B4/B5": lambda c_, v_, a_: (clustered.intersect_any_clustered if a_ else
                                              clustered.intersect_closest_clustered)(c_, v_)}
-        times13 = res_steps.time_turns("[13]", {**calls13, **b45}, rc, inputs13, rounds,
-                                       cuda_ms, graph_ms)
-        times13.update(res_steps.time_turns("[13] floor", calls13, rc, floors13, rounds,
-                                            cuda_ms, graph_ms))
+
+        def turn_calls(inputs, callers):
+            return {(n, t): (lambda f, v_, a_: lambda: f(rc, v_, a_))(f, v, a)
+                    for n, (v, a) in inputs.items() for t, f in callers.items()}
+
+        times13 = time_turns("[13]", turn_calls(inputs13, {**calls13, **b45}), rounds)
+        times13.update(time_turns("[13] floor", turn_calls(floors13, calls13), rounds))
         if int(resident.intersect_closest_resident(rc, floors13[next(
                 k for k in floors13 if k.startswith("one missing"))][0])["hit"].sum()):
             raise AssertionError("a ray that misses the root box hit")
-    blocks13 = rc.get("res_blocks", rc["blocks"])
-    page_bytes = 4 * blocks13.shape[0] * resident.P_CL * 128
-    bounds13 = {}
+    bounds13, span_bounds13 = {}, {}
     for name, key, view, out_b in (("d=1 closest", "resident_closest", rad13, 16),
                                    ("d=1 occlusion", "resident_any", occ13, 1),
                                    ("primaries", "primaries", prim13, 16)):
         st_ = st13[name]
         entries = ", ".join(f"{k} {int(v.sum())}" for k, v in st_["read"].items())
         # each table entry the lanes' tests read, once (the twin's marks)
-        n_bytes = ray_bytes(view) + out_b * view.shape[1] + st_["table_bytes"]
-        n_ops = (st_["page"] + st_["cluster"] + st_["group"]) * SLAB_OPS + st_["tri"] * TRI_OPS
-        bounds13[key] = bound(n_bytes, n_ops)
+        n_bytes = ray_bytes(view) + out_b * view.shape[1]
+        walk_ops = (st_["cluster"] + st_["group"]) * SLAB_OPS + st_["tri"] * TRI_OPS
+        bounds13[key] = bound(n_bytes + st_["table_bytes"], walk_ops + st_["page"] * SLAB_OPS)
+        # the same walk with the kernel's span gate: each span box, and the
+        # page boxes of the spans a lane passes
+        span_bounds13[key] = bound(n_bytes + st_["span_table_bytes"], walk_ops + (
+            st_["span"] + st_["page_in_span"]) * SLAB_OPS)
         print(f"[13] {name}: {view.shape[1]} rays, {int((view[6] > 0).sum())} live; slab tests "
               f"page {st_['page']} cluster {st_['cluster']} group {st_['group']}, triangle "
-              f"tests {st_['tri']}; distinct pages {st_['pages']}; the page-streaming design "
-              f"stages per block of {resident.RES_BLOCK} rays {st_['block_pages']} pages "
-              f"({st_['block_pages'] * page_bytes / 1e9:.3f} GB) and "
-              f"{st_['block_meta_cols']} meta columns; table bytes read {st_['table_bytes']} "
-              f"(entries: {entries}); bound {bounds13[key][0]:.4f} ms ({bounds13[key][1]})")
+              f"tests {st_['tri']}; distinct pages {st_['pages']}; table bytes read "
+              f"{st_['table_bytes']} (entries: {entries}); bound {bounds13[key][0]:.4f} ms "
+              f"({bounds13[key][1]}); with the span gate: slab tests span {st_['span']} page "
+              f"{st_['page_in_span']}, table bytes {st_['span_table_bytes']}, bound "
+              f"{span_bounds13[key][0]:.4f} ms ({span_bounds13[key][1]})")
         print(f"[13] {name} spread: {json.dumps(st_['spread'])}")
     for name, key in (("d=1 closest", "resident_closest"), ("d=1 occlusion", "resident_any"),
                       ("primaries", "primaries")):
@@ -1576,7 +1594,8 @@ def main() -> None:
                                   twin_ms["resident_any"])}
     # B7's rows of the kernel line also carry the graph clock and the
     # --against trees' times
-    extra_res = {key: {"graph_ms": times13[name][THIS_TREE][1], "against": {
+    extra_res = {key: {"graph_ms": times13[name][THIS_TREE][1],
+                       "span_bound_ms": span_bounds13[key][0], "against": {
         t: {"events_ms": e, "graph_ms": g} for t, (e, g) in times13[name].items()
         if t not in (THIS_TREE, "B4/B5")}}
         for key, name in (("resident_closest", "d=1 closest"), ("resident_any", "d=1 occlusion"))}

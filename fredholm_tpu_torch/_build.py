@@ -15,6 +15,7 @@ it is the package's only global state.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -170,6 +171,19 @@ def lib():
     if _lib is None:
         _lib = load(build())
     return _lib
+
+
+@contextlib.contextmanager
+def using(handle):
+    """Inside the block the wrappers launch from `handle`, another
+    build's library (`load`), instead of this package's (timing one
+    tree's kernels against another's)."""
+    global _lib
+    saved, _lib = _lib, handle
+    try:
+        yield handle
+    finally:
+        _lib = saved
 
 
 def load(lib_path: str):

@@ -60,12 +60,10 @@ from ..accel.cluster import CLUSTER_SIZE, SC_GROUP
 from ..accel.clustered import RESIDENT_ENV, _inv_dir, _slab, _slab_t, walk_cluster
 
 P_CL = 4      # clusters per page: the page layout; results do not depend on it
-CHUNK = 128   # meta columns streamed at a time
+CHUNK = 128   # K_pad is a multiple of it (the reference's meta chunk)
 SPAN = 8      # pages a span record covers (csrc/resident.cu kSpan)
-# rays a block of csrc/resident.cu holds (kBlock); the stats count per block
-# of as many consecutive rays, the unit that the page-streaming design (the
-# first port of this kernel) staged pages for
-RES_BLOCK = 256
+RES_BLOCK = 256  # rays a block of csrc/resident.cu holds (kBlock), 8 tiles of 32
+TILE = 32        # rays a tile: block b holds tiles b, b + n_blocks, ... (kernel)
 
 
 def routes(c: Dict, coherent: bool) -> bool:
@@ -162,22 +160,24 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
     blocks = c.get("res_blocks", c["blocks"])
     counts = meta[6].cpu().numpy()  # the host copy drives the loops
     n_pages = _n_pages(c)
-    n_chunks = meta.shape[1] // CHUNK
-    # with stats: the chunk in which each lane found its occluder, the
-    # pages staged (any block) and their count over blocks, and a mask per
-    # table of the entries the lanes' tests read
-    occ_chunk = torch.full((m,), n_chunks, dtype=torch.int64, device=dev)
+    # with stats: the pages any lane wants, and a mask per table of the
+    # entries the lanes' tests read
     page_read = torch.zeros(n_pages, dtype=torch.bool, device=dev)
     if stats is not None:
-        for k in ("page", "cluster", "group", "tri", "block_pages"):
+        for k in ("page", "cluster", "group", "tri", "span", "page_in_span"):
             stats.setdefault(k, 0)
         n_cl = n_pages * P_CL
         sizes = {"page_box": n_pages, "cl_count": n_cl, "cl_box": n_cl,
                  "grp_box": n_cl * CLUSTER_SIZE, "tri": n_cl * CLUSTER_SIZE,
-                 "prim": n_cl * CLUSTER_SIZE}
+                 "prim": n_cl * CLUSTER_SIZE, "span_box": -(-n_pages // SPAN),
+                 "page_box_in_span": n_pages}
         read = stats.setdefault("read", {})
         for k, n in sizes.items():
             read.setdefault(k, torch.zeros(n, dtype=torch.bool, device=dev))
+        span = c["res_span"]
+        # per lane: the pages it wants and the clusters it walks
+        lane_pages = torch.zeros(m, dtype=torch.int64, device=dev)
+        lane_clusters = torch.zeros(m, dtype=torch.int64, device=dev)
 
     def count(key, n):
         if stats is not None:
@@ -187,20 +187,27 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
         if stats is not None:
             read[key][idx] = True
 
-    if stats is not None:
-        # per block of RES_BLOCK consecutive lanes, and per lane: the pages
-        # it wants and the clusters it walks
-        n_blocks = -(-m // RES_BLOCK)
-        lane_blk = torch.arange(m, device=dev) // RES_BLOCK
-        blk_pages = torch.zeros(n_blocks, dtype=torch.int64, device=dev)
-        blk_clusters = torch.zeros(n_blocks, dtype=torch.int64, device=dev)
-        lane_pages = torch.zeros(m, dtype=torch.int64, device=dev)
-        lane_clusters = torch.zeros(m, dtype=torch.int64, device=dev)
-
     lanes_alive = torch.nonzero(alive, as_tuple=True)[0]
     for p in range(n_pages):
         c0 = p * P_CL
         lanes = lanes_alive[~occ[lanes_alive]] if any_hit else lanes_alive
+        if stats is not None:
+            # the span gate ahead of its pages (the kernel's): its lanes'
+            # slab tests at the span's turn, and the page tests of the
+            # lanes it passes; it changes no result (res_span, module
+            # docstring), so the walk below gates every page as before
+            if p % SPAN == 0:
+                box = torch.cat([span[p // SPAN, 0:3], span[p // SPAN, 4:7]])
+                count("span", lanes.numel())
+                if lanes.numel():
+                    mark("span_box", p // SPAN)
+                in_span = torch.zeros(m, dtype=torch.bool, device=dev)
+                in_span[lanes[_slab(box, [x[lanes] for x in o], [x[lanes] for x in inv],
+                                    best_t[lanes])]] = True
+            n_in = int(in_span[lanes].sum())
+            count("page_in_span", n_in)
+            if n_in:
+                mark("page_box_in_span", p)
         count("page", lanes.numel())
         if lanes.numel():
             mark("page_box", p)
@@ -210,7 +217,6 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             continue
         if stats is not None:
             page_read[p] = True
-            blk_pages[torch.unique(lane_blk[lanes])] += 1
             lane_pages[lanes] += 1
         for cid in range(c0, c0 + P_CL):
             mark("cl_count", cid)
@@ -225,7 +231,6 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             if ln.numel() == 0:
                 continue
             if stats is not None:
-                blk_clusters[torch.unique(lane_blk[ln])] += 1
                 lane_clusters[ln] += 1
             base = cid * CLUSTER_SIZE
             res, walk = walk_cluster(blocks, base, cnt, [x[ln] for x in o], [x[ln] for x in d],
@@ -238,7 +243,6 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
                 mark("tri", base + torch.nonzero(walk["tri_read"]).flatten())
             if any_hit:
                 occ[ln] = res
-                occ_chunk[ln[res]] = cid // CHUNK
                 continue
             win, t_w, u_w, v_w = res
             hit = win >= 0
@@ -249,23 +253,25 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
             bu[hl] = u_w[hit]
             bv[hl] = v_w[hit]
     if stats is not None:
-        # a block streams meta chunks until every lane of it is done (dead,
-        # or occluded in an earlier chunk)
-        lane_chunks = torch.where(alive, torch.clamp(occ_chunk + 1, max=n_chunks), 0)
-        n_blocks = -(-m // RES_BLOCK)
-        blk = torch.zeros(n_blocks, dtype=torch.int64, device=dev).scatter_reduce_(
-            0, torch.arange(m, device=dev) // RES_BLOCK, lane_chunks, "amax")
-        stats["block_meta_cols"] = stats.get("block_meta_cols", 0) + int(blk.sum()) * CHUNK
-        stats["meta_cols"] = max(stats.get("meta_cols", 0), int(blk.max()) * CHUNK)
         stats["pages"] = stats.get("pages", 0) + int(page_read.sum())
-        stats["block_pages"] += int(blk_pages.sum())
-        stats["per_block"] = {"pages": blk_pages, "clusters": blk_clusters}
+        # per block of the kernel (its tiles of TILE rays, every
+        # n_blocks-th): the sums of its lanes' counts
+        n_blocks = -(-m // RES_BLOCK)
+        blk = (torch.arange(m, device=dev) // TILE) % n_blocks
         stats["per_lane"] = {"pages": lane_pages, "clusters": lane_clusters}
+        stats["per_block"] = {k: torch.zeros(n_blocks, dtype=torch.int64, device=dev)
+                              .index_add_(0, blk, v) for k, v in stats["per_lane"].items()}
         # the kernel reads row 9 (prim) of each lane's final hit; every
         # alive lane reads the root box, the tables once per entry read
         mark("prim", slot[slot >= 0])
         rows = {"page_box": 6, "cl_count": 1, "cl_box": 6, "grp_box": 6, "tri": 9, "prim": 1}
         stats["table_bytes"] = 4 * (6 + sum(r * int(read[k].sum()) for k, r in rows.items()))
+        # the same with the span gate: span boxes, and the page boxes only
+        # where a lane's span passed
+        rows.pop("page_box")
+        rows.update(span_box=6, page_box_in_span=6)
+        stats["span_table_bytes"] = 4 * (6 + sum(r * int(read[k].sum())
+                                                 for k, r in rows.items()))
     if any_hit:
         return {"occluded": occ}
     miss = prim < 0
@@ -276,18 +282,20 @@ def _sweep_twin(c: Dict, rays: torch.Tensor, any_hit: bool, stats=None) -> Dict:
 def intersect_closest_twin(c: Dict, rays: torch.Tensor, stats=None) -> Dict:
     """Plain PyTorch B7 closest hit; same contract as the kernel. stats (a
     dict), when given, receives the page, cluster and group slab tests
-    and the triangle tests the kernel takes ("page", "cluster", "group",
-    "tri"), the triangle pages and meta columns its blocks of RES_BLOCK
-    rays stage, summed over blocks ("block_pages", "block_meta_cols"),
-    per block of this call ("per_block": {"pages": the pages any of its
-    lanes wants, "clusters": the clusters any of its lanes walks}, each
-    an int64 [n_blocks]) and per lane ("per_lane": {"pages", "clusters"},
-    each [M]), the distinct pages and meta columns read ("pages",
-    "meta_cols"),
-    "read" (a mask per table of the entries the lanes' tests read: page
-    and cluster boxes, cluster counts, group boxes, triangles, and the
-    prim row at each lane's final hit) and "table_bytes" (those entries'
-    bytes, each read once, and the root box)."""
+    and the triangle tests of the walk ("page": every live lane tests
+    every page box; "cluster", "group", "tri"), the same walk's tests with
+    the kernel's span gate ahead of the pages ("span": each live lane
+    tests each span box; "page_in_span": the page tests of the lanes
+    whose span passes), per lane ("per_lane": {"pages": the pages whose
+    box passes its gate, "clusters": the clusters it walks}, each int64
+    [M]) and their sums per block of the kernel ("per_block", each
+    [n_blocks]), the distinct pages wanted ("pages"), "read" (a mask per
+    table of the entries the lanes' tests read: span, page and cluster
+    boxes, cluster counts, group boxes, triangles, and the prim row at
+    each lane's final hit), "table_bytes" (those entries' bytes, each
+    read once, with every tested page box and the root box) and
+    "span_table_bytes" (the same with the span boxes, and the page boxes
+    of passing spans only)."""
     _build.LAUNCHES["resident_closest_twin"] += 1
     return _sweep_twin(c, rays, False, stats)
 

@@ -1,41 +1,29 @@
-"""Measure the ray-resident traversal (B7) on the card, step by step.
-
-Run from the repository root on a machine with an NVIDIA GPU:
-    python3 -m fredholm_tpu_torch.tools.resident_steps [--against CSRC_DIR ...] [--rounds N]
+"""The steps chip_smoke.py [13] takes to measure the ray-resident
+traversal (B7) on the card.
 
 On the hosek sweep (bench.py metric 2's scene, 512x288) with
-FREDHOLM_TRAV_RESIDENT=1, the rays of B7's traces at metric 2's d = 1
-(the closest block, 147,456 rays, and the three occlusion blocks,
-442,368), the primaries, and inputs that isolate a design's fixed costs:
-every lane dead; one live ray in each 256 (a block of the page-streaming
-design, the first port of this kernel) that misses the root box (every
-page box tested, nothing walked); the 256 consecutive d = 1 closest rays
-that want the most pages (the union of their pages: what the
-page-streaming design staged for them) with every other lane dead, and
-the same rays made to miss. It prints the twins' per-block and per-lane
-counts (experimental/resident.py `stats`), holds B7 of this tree and of
-each tree given by --against bit-equal to the twins on every input, and
-times each tree's B7 on each input in `rounds` turns whose order
-reverses each turn: CUDA events around 10 back-to-back calls, and
-CUDA-graph replays (device time alone). A tree whose csrc/resident.cu
-takes the page-streaming design's arguments (res_meta and the triangle
-blocks) is called through them. chip_smoke.py [13] runs the same steps.
+FREDHOLM_TRAV_RESIDENT=1: the rays of B7's traces at metric 2's d = 1
+(the closest block and the three occlusion blocks) and the primaries
+(`gate_on_bounce`); inputs that isolate the kernel's fixed costs
+(`floor_inputs`); a small mesh on which the kernel's in-turn group test
+decides results (`retest_case`); the twins' counts with their spread over
+lanes and over the kernel's blocks (`twin_stats`); each tree's B7 held
+bit-equal to the twins (`hold_equal`), called through `tree_calls`.
+chip_smoke.py times the calls in turns (`time_turns`) and prints what
+these return.
 """
 
 from __future__ import annotations
 
-import argparse
 import ctypes
-import json
-import os
-import sys
-import time
 
 import numpy as np
 import torch
 
-# the kernel entry of the page-streaming csrc/resident.cu, as nvcc
-# mangles it: its table arguments are res_meta and the triangle blocks
+# the kernel entry of the page-streaming csrc/resident.cu (the first port
+# of this kernel: a block of 256 rays streaming every page through shared
+# memory), as nvcc mangles it: its table arguments are res_meta and the
+# triangle blocks. Only for timing this tree's B7 against such a tree.
 STREAMING_B7_SIGNATURE = "PKfxiS2_S2_iiS2_xPfPiS3_S3_Ph"
 
 
@@ -76,22 +64,18 @@ def streaming_call(handle, c, rays, any_hit):
 
 
 def tree_calls(trees: dict, infos: dict):
-    """{tree: call(c, rays, any_hit)}: this tree's wrappers, each other
-    tree's B7 under its own library (through the page-streaming design's
-    arguments where its
-    build says so)."""
+    """{tree: call(c, rays, any_hit)}: B7's wrappers under each tree's
+    library (`trees`: {name: library}; `infos`: {name: its build record}),
+    through the page-streaming design's arguments where the build says
+    so."""
     from fredholm_tpu_torch import _build
     from fredholm_tpu_torch.experimental import resident
 
     def wrapper(handle):
         def call(c, rays, any_hit):
-            saved, _build._lib = _build._lib, handle
-            try:
-                fn = resident.intersect_any_resident if any_hit else \
-                    resident.intersect_closest_resident
-                return fn(c, rays)
-            finally:
-                _build._lib = saved
+            with _build.using(handle):
+                return (resident.intersect_any_resident if any_hit else
+                        resident.intersect_closest_resident)(c, rays)
         return call
 
     out = {}
@@ -118,96 +102,124 @@ def spread(x: torch.Tensor) -> dict:
 
 
 def twin_stats(c, rays, any_hit):
-    """The twin's counts on `rays`, with the per-block and per-lane
-    distributions."""
+    """The twin's counts on `rays` (experimental/resident.py
+    `intersect_closest_twin`), with the spread of the pages and clusters
+    over lanes and over the kernel's blocks."""
     from fredholm_tpu_torch.experimental import resident
 
     st = {}
     (resident.intersect_any_twin if any_hit else resident.intersect_closest_twin)(c, rays, st)
-    st["spread"] = {"block pages": spread(st["per_block"]["pages"]),
-                    "block clusters": spread(st["per_block"]["clusters"]),
-                    "lane pages": spread(st["per_lane"]["pages"]),
-                    "lane clusters": spread(st["per_lane"]["clusters"])}
+    st["spread"] = {f"{unit} {k}": spread(st[f"per_{unit}"][k])
+                    for unit in ("block", "lane") for k in ("pages", "clusters")}
     return st
 
 
 def floor_inputs(c, rad, st_closest):
-    """Inputs that isolate the fixed costs (module docstring), from the
-    d = 1 closest rays and their twin counts."""
+    """Inputs that isolate the kernel's fixed costs, from the d = 1 closest
+    rays and their twin counts: every lane dead; one live ray in each
+    RES_BLOCK that misses the root box (every span box tested, nothing
+    walked); the RES_BLOCK rays that want the most pages, every other lane
+    dead; and those rays made to miss."""
     from fredholm_tpu_torch.experimental import resident
 
     dead = rad.clone()
     dead[6] = -1.0
+    miss_o = c["root_aabb"][0:3, 0:1] - 1000.0
+
+    def miss(rays, cols):
+        rays[0:3, cols] = miss_o
+        rays[3:6, cols] = -(3.0 ** -0.5)
+        return rays
+
     lone = dead.clone()
     first = torch.arange(0, lone.shape[1], resident.RES_BLOCK, device=rad.device)
-    miss_o = c["root_aabb"][0:3, 0:1] - 1000.0
-    lone[0:3, first] = miss_o
-    lone[3:6, first] = -(3.0 ** -0.5)
+    miss(lone, first)
     lone[6, first] = 1e9
-    b = int(torch.argmax(st_closest["per_block"]["pages"]))
-    cols = slice(b * resident.RES_BLOCK, min((b + 1) * resident.RES_BLOCK, rad.shape[1]))
+    pages = st_closest["per_lane"]["pages"]
+    heavy = torch.topk(pages, resident.RES_BLOCK).indices
     one = dead.clone()
-    one[:, cols] = rad[:, cols]
-    one_miss = one.clone()
-    live = torch.zeros(rad.shape[1], dtype=torch.bool, device=rad.device)
-    live[cols] = rad[6, cols] > 0
-    one_miss[0:3, live] = miss_o
-    one_miss[3:6, live] = -(3.0 ** -0.5)
-    pages = int(st_closest["per_block"]["pages"][b])
+    one[:, heavy] = rad[:, heavy]
     return {
         "all lanes dead": dead,
         f"one missing ray in each {resident.RES_BLOCK} ({first.numel()} rays)": lone,
-        f"rays of block {b} alone ({int(live.sum())} live, {pages} pages wanted)": one,
-        f"rays of block {b} alone, made to miss": one_miss,
+        f"the {resident.RES_BLOCK} rays that want the most pages alone "
+        f"({int(pages[heavy].min())}-{int(pages[heavy].max())} pages a ray)": one,
+        "those rays made to miss": miss(one.clone(), heavy),
     }
+
+
+def retest_case(device):
+    """(tables, rays): a mesh and rays on which the kernel's in-turn group
+    test decides results. Two coplanar layers at z = 0.3 in one cluster:
+    16 triangles tiling [0, 2]^2 (one group, vertices off the float grid)
+    and a large triangle over them whose 15 companions lie at x < -4 (the
+    earlier group in slot order); 1,024 rays from above hit both layers
+    at t equal to a few ulps. On some lanes a tiling triangle's t is below
+    the large one's, but its group box's entry lies beyond that t: after
+    the hit in the earlier group, the walk in turn skips the group, so a
+    test at once at the cluster's best t alone would take the wrong
+    triangle (tests/test_torch_resident.py counts these lanes)."""
+    from fredholm_tpu_torch.accel.bvh import build_bvh
+    from fredholm_tpu_torch.accel.cluster import build_tlas, extract_hierarchy
+    from fredholm_tpu_torch.accel.clustered import prepare_clustered
+    from fredholm_tpu_torch.experimental.resident import prepare_resident
+
+    rng = np.random.default_rng(0)
+    gx, gy = np.meshgrid(np.linspace(0, 2, 5), np.linspace(0, 2, 3), indexing="ij")
+    g = np.stack([gx, gy], -1) + rng.uniform(-0.05, 0.05, (5, 3, 2)) + 0.0123
+    tris = []
+    for i in range(4):
+        for j in range(2):
+            a, b, c_, d = g[i, j], g[i + 1, j], g[i + 1, j + 1], g[i, j + 1]
+            tris += [(a, b, c_), (a, c_, d)]
+    tris.append(([-6.1, -0.07], [1.53, -0.05], [1.57, 1.61]))
+    for i in range(15):
+        x0 = -4.03 - 0.31 * i
+        tris.append(([x0, 0.01], [x0 + 0.29, 0.02], [x0, 1.03]))
+    v = np.asarray([[(p[0], p[1], 0.3) for p in t] for t in tris], np.float32)
+    v0, e1, e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    tlas = build_tlas([extract_hierarchy(build_bvh(lo, hi), v0, e1, e2)],
+                      [(0, np.eye(4, dtype=np.float32))])
+    c = {**prepare_clustered(tlas, device), **prepare_resident(tlas, device)}
+    n = 1024
+    rng = np.random.default_rng(1)
+    at = np.stack([rng.uniform(0.3, 1.4, n), rng.uniform(0.1, 0.9, n), np.full(n, 0.3)], 1)
+    o = at + np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n), rng.uniform(0.5, 3, n)], 1)
+    d = (at - o) / np.linalg.norm(at - o, axis=1, keepdims=True)
+    rays = np.concatenate([o.T, d.T, np.full((1, n), 1e9)])
+    return c, torch.tensor(np.ascontiguousarray(rays, np.float32), device=device)
 
 
 def hold_equal(tag, calls, c, inputs):
     """Every tree's B7 bit-equal to the twins on every input (NaN-free
-    outputs: exact equality)."""
+    outputs: exact equality). Returns {input: {tree: what was measured}}:
+    closest, the largest |B7 - twin| over t, u and v; any-hit, the share
+    of lanes whose occlusion differs."""
     from fredholm_tpu_torch.experimental import resident
 
+    out = {}
     for name, (rays, any_hit) in inputs.items():
         if any_hit:
             want = resident.intersect_any_twin(c, rays)
         else:
             want = resident.intersect_closest_twin(c, rays)
+        out[name] = {}
         for tree, call in calls.items():
             got = call(c, rays, any_hit)
             if any_hit:
                 bad = int((got != want).sum())
+                out[name][tree] = bad / rays.shape[1]
             else:
                 bad = sum(int((got[k] != want[k]).sum()) for k in ("t", "prim", "u", "v", "hit"))
+                out[name][tree] = max((got[k] - want[k]).abs().max().item()
+                                      for k in ("t", "u", "v"))
             if bad:
                 raise AssertionError(f"{tag} {name}: B7 of {tree} differs from the twin on {bad} "
                                      "values")
         print(f"{tag} {name}: {rays.shape[1]} rays, {int((rays[6] > 0).sum())} live; B7 of "
               f"{len(calls)} tree(s) bit-equal to the twin", flush=True)
-
-
-def time_turns(tag, calls, c, inputs, rounds, cuda_ms, graph_ms):
-    """{input: {tree: (events ms, graph ms)}}, means of `rounds` turns
-    whose order reverses each turn."""
-    keys = [(n, t) for n in inputs for t in calls]
-    ev = {k: [] for k in keys}
-    gr = {k: [] for k in keys}
-    for rnd in range(rounds):
-        for n, t in (keys if rnd % 2 == 0 else keys[::-1]):
-            rays, any_hit = inputs[n]
-            fn = (lambda call, rays_, a: lambda: call(c, rays_, a))(calls[t], rays, any_hit)
-            ev[(n, t)].append(cuda_ms(fn, 10))
-            gr[(n, t)].append(graph_ms(fn))
-    out = {n: {} for n in inputs}
-    first = next(iter(calls))
-    for n, t in keys:
-        out[n][t] = (sum(ev[(n, t)]) / rounds, sum(gr[(n, t)]) / rounds)
-    for n in inputs:
-        line = "; ".join(f"{t}: events {e:.5f} ms, graph {g:.5f} ms"
-                         + (f" ({g / out[n][first][1]:.3f}x {first}'s)" if t != first else "")
-                         for t, (e, g) in out[n].items())
-        print(f"{tag} {n}: {line} (graph turns: "
-              + ", ".join(f"{t} " + " ".join(f"{x:.5f}" for x in gr[(n, t)]) for t in calls)
-              + ")", flush=True)
     return out
 
 
@@ -228,66 +240,3 @@ def gate_on_bounce(r, dev):
     n_occ = len(cfg.occ_blocks(True))
     nb = len(cfg.blocks)
     return r1[:, n_occ * ns:nb * ns], r1[:, :n_occ * ns], r0
-
-
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", action="append", default=[], metavar="CSRC_DIR")
-    ap.add_argument("--rounds", type=int, default=4)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    sys.path.insert(0, os.getcwd())  # the repository root: chip_smoke.py
-    import chip_smoke as cs
-    import fredholm_tpu_torch as ft
-    from fredholm_tpu_torch import _build
-    from fredholm_tpu_torch.accel import clustered
-    from fredholm_tpu_torch.scene.procedural import hosek_sweep_scene
-
-    card = cs.card_line()
-    print(card, flush=True)
-    t0 = time.perf_counter()
-    trees, infos = {"this tree": _build.lib()}, {"this tree": _build.BUILD_INFO}
-    for csrc in args.against:
-        infos[csrc] = {}
-        trees[csrc] = _build.load(_build.build(os.path.abspath(csrc), infos[csrc]))
-    for t, info in infos.items():
-        for k, v in info.get("ptxas", {}).items():
-            if "k_resident" in k:
-                print(f"ptxas {t} {k}: {v}", flush=True)
-    print(f"built {len(trees)} tree(s) in {time.perf_counter() - t0:.1f} s", flush=True)
-    dev = torch.device("cuda")
-    os.environ[clustered.RESIDENT_ENV] = "1"
-    r = ft.Renderer(512, 288, device="cuda")
-    r.set_scene(hosek_sweep_scene())
-    r.camera.origin = np.asarray([0.0, 2.0, 8.0], np.float32)
-    r.camera.look_around(0.0, 0.0)
-    r.camera._update_transform()
-    r.set_directional_light([2.0, 1.9, 1.8], [0.35, 0.75, 0.3], angle=0.5)
-    r.load_arhosek_sky(turbidity=3.0, albedo=0.3)
-    c = r._dev["clusters"]
-    rad, occ, prim_rays = gate_on_bounce(r, dev)
-    result = {"card": card}
-    stats = {}
-    for name, view, any_hit in (("d=1 closest", rad, False), ("d=1 occlusion", occ, True),
-                                ("primaries", prim_rays, False)):
-        st = twin_stats(c, view, any_hit)
-        stats[name] = st
-        row = {k: st[k] for k in ("page", "cluster", "group", "tri", "pages", "block_pages",
-                                  "block_meta_cols", "table_bytes")}
-        row["spread"] = st["spread"]
-        result[name] = row
-        print(f"stats {name}: {json.dumps(row)}", flush=True)
-    inputs = {"d=1 closest": (rad, False), "d=1 occlusion": (occ, True),
-              "primaries": (prim_rays, False)}
-    inputs.update({k: (v, False) for k, v in floor_inputs(c, rad, stats["d=1 closest"]).items()})
-    calls = tree_calls(trees, infos)
-    hold_equal("equal", calls, c, inputs)
-    times = time_turns("time", calls, c, inputs, args.rounds, cs.cuda_ms, cs.graph_ms)
-    result["times"] = {n: {t: {"events_ms": e, "graph_ms": g} for t, (e, g) in v.items()}
-                       for n, v in times.items()}
-    print(json.dumps(result))
-
-
-if __name__ == "__main__":
-    main()

@@ -11,7 +11,8 @@ wavefront compaction, against the reference.
   unions and counts of the lanes' wanted pages and walked clusters. The
   kernel's own walk order (csrc/resident.cu: a warp tests a level at
   once, then each candidate again in turn) replayed the same way:
-  bit-equal to the twins.
+  bit-equal to the twins, on the sphere and on coplanar layers where the
+  group test in turn decides lanes (without it the walk differs there).
 - The B7 twins against the reference's Pallas kernel in interpret mode,
   one call each on 512 rays (20% dead lanes, some finite tmax): hit masks
   and occlusion equal; prim equal except at near-ties (relative t within
@@ -49,6 +50,7 @@ from fredholm_tpu_torch.experimental import compact, resident
 from fredholm_tpu_torch.integrator import pt as wavefront
 from fredholm_tpu_torch.scene.procedural import _quad, _scene, uv_sphere
 from fredholm_tpu_torch.scene.types import Material
+from fredholm_tpu_torch.tools.resident_steps import retest_case
 
 from test_bvh import _sphere_blas
 from test_torch_cache import cached
@@ -159,8 +161,12 @@ def test_closest_twin_matches_reference(sphere_case):
     stats = {}
     resident.intersect_closest_twin(c, rays, stats)
     assert stats["page"] >= int((~dead).sum()) and stats["tri"] > 0
-    assert 0 < stats["pages"] <= stats["block_pages"]
-    assert stats["meta_cols"] == c["res_meta"].shape[1]
+    assert 0 < stats["pages"] <= resident._n_pages(c)
+    # with the span gate every live lane tests every span box, and only
+    # the page boxes of the spans it passes
+    assert stats["page"] == int((~dead).sum()) * resident._n_pages(c)
+    assert stats["span"] == int((~dead).sum()) * c["res_span"].shape[0]
+    assert 0 < stats["page_in_span"] < stats["page"]
     # the bytes: each entry read once; prim at each distinct final hit,
     # whose triangle was tested
     read = {k: v.numpy() for k, v in stats["read"].items()}
@@ -170,6 +176,10 @@ def test_closest_twin_matches_reference(sphere_case):
     rows = {"page_box": 6, "cl_count": 1, "cl_box": 6, "grp_box": 6, "tri": 9, "prim": 1}
     assert stats["table_bytes"] == 4 * (6 + sum(r * int(read[k].sum()) for k, r in rows.items()))
     assert stats["table_bytes"] < 4 * (c["res_meta"].numel() + c["blocks"].numel())
+    assert not (read["page_box_in_span"] & ~read["page_box"]).any()
+    rows = {**rows, "page_box": 0, "span_box": 6, "page_box_in_span": 6}
+    assert stats["span_table_bytes"] == 4 * (6 + sum(r * int(read[k].sum())
+                                                     for k, r in rows.items()))
 
 
 def test_any_twin_matches_reference(sphere_case):
@@ -271,8 +281,9 @@ def _root_clamp(c, o, inv):
 
 def _walk_lane(c, ray, any_hit):
     """One live lane through the kernel's records (csrc/resident.cu
-    `k_resident`): its result (t, prim, u, v; any-hit: occluded), and the
-    pages and clusters whose boxes pass its gates."""
+    `k_resident`): its result (t, prim, u, v; any-hit: occluded), the
+    pages and clusters whose boxes pass its gates, and its span box tests
+    and page box tests in passing spans ({"span": n, "page_in_span": n})."""
     span, page = c["res_span"].numpy(), c["res_page"].numpy()
     grp, tri = c["grp_rec"].numpy(), c["tri_rec"].numpy()
     n_pages, p_cl, sp = page.shape[0], resident.P_CL, resident.SPAN
@@ -280,11 +291,13 @@ def _walk_lane(c, ray, any_hit):
     eps = _F(1e-12)
     inv = [_F(1) / (x if abs(x) >= eps else (-eps if x < 0 else eps)) for x in d]
     best, prim, bu, bv = min(tmax, _root_clamp(c, o, inv)), -1, _F(0), _F(0)
-    pages, clusters = set(), set()
+    pages, clusters, tests = set(), set(), {"span": 0, "page_in_span": 0}
     for s in range(-(-n_pages // sp)):
+        tests["span"] += 1
         if not _slab_np(span[s], o, inv, best):
             continue
         for p in range(s * sp, min(n_pages, (s + 1) * sp)):
+            tests["page_in_span"] += 1
             if not _slab_np(page[p, 0], o, inv, best):
                 continue
             pages.add(p)
@@ -302,11 +315,11 @@ def _walk_lane(c, ray, any_hit):
                     for q in range(ks.shape[0]):
                         if ok[q] and t[q] < best:
                             if any_hit:
-                                return True, pages, clusters
+                                return True, pages, clusters, tests
                             best, prim, bu, bv = t[q], int(tri[cid * 128 + ks[q], 3]), u[q], v[q]
     if any_hit:
-        return False, pages, clusters
-    return (best if prim >= 0 else tmax, prim, bu, bv), pages, clusters
+        return False, pages, clusters, tests
+    return (best if prim >= 0 else tmax, prim, bu, bv), pages, clusters, tests
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -317,27 +330,31 @@ def test_twin_block_stats_brute_force(sphere_case, any_hit):
         c, rays, stats)
     r = rays.numpy()
     m = r.shape[1]
+    # the kernel's blocks: tile i // TILE goes to block tile % n_blocks
     n_blocks = -(-m // resident.RES_BLOCK)
-    blk_pages = [set() for _ in range(n_blocks)]
-    blk_clusters = [set() for _ in range(n_blocks)]
+    assert n_blocks > 1
+    blk_pages, blk_clusters = [0] * n_blocks, [0] * n_blocks
     lane_pages, lane_clusters = [0] * m, [0] * m
+    tests = {"span": 0, "page_in_span": 0}
     for i in range(m):
         if not r[6, i] > 0:
             res = False if any_hit else (r[6, i], -1, _F(0), _F(0))
         else:
-            b = i // resident.RES_BLOCK
-            res, pages, clusters = _walk_lane(c, r[:, i], any_hit)
-            blk_pages[b] |= pages
-            blk_clusters[b] |= clusters
+            b = (i // resident.TILE) % n_blocks
+            res, pages, clusters, n = _walk_lane(c, r[:, i], any_hit)
             lane_pages[i], lane_clusters[i] = len(pages), len(clusters)
+            blk_pages[b] += len(pages)
+            blk_clusters[b] += len(clusters)
+            for k in tests:
+                tests[k] += n[k]
         # bit-equal to the twin lane by lane
         assert _same_result(twin, i, res, any_hit), i
-    assert any(blk_pages) and len(set(lane_pages)) > 2
-    for key, sets in (("pages", blk_pages), ("clusters", blk_clusters)):
-        assert stats["per_block"][key].tolist() == [len(x) for x in sets], key
+    assert len(set(lane_pages)) > 2 and all(blk_pages)
+    assert stats["per_block"]["pages"].tolist() == blk_pages
+    assert stats["per_block"]["clusters"].tolist() == blk_clusters
     assert stats["per_lane"]["pages"].tolist() == lane_pages
     assert stats["per_lane"]["clusters"].tolist() == lane_clusters
-    assert stats["block_pages"] == sum(map(len, blk_pages))
+    assert {k: stats[k] for k in tests} == tests
 
 
 def _same_result(twin, i, res, any_hit) -> bool:
@@ -347,14 +364,15 @@ def _same_result(twin, i, res, any_hit) -> bool:
     return got == [float(res[0]), res[1], float(res[2]), float(res[3])]
 
 
-def _walk_warp(c, ray, any_hit):
+def _walk_warp(c, ray, any_hit, group_retest=True):
     """One ray through the kernel's warp walk (csrc/resident.cu `walk`):
     64 spans, then a span's 32 (page, cluster) slots, then a cluster's
     groups and their triangles, each level tested at once at the best t
     of that moment; each candidate tested again in cid order at the best
     t of its turn (a page at its first candidate cluster); a group's
     triangles reduced to their first (t, index) minimum. Returns (t, prim,
-    u, v), or occluded."""
+    u, v), or occluded. group_retest=False leaves out the group's test in
+    turn (a walk that would not be exact)."""
     span, page = c["res_span"].numpy(), c["res_page"].numpy()
     grp, tri = c["grp_rec"].numpy(), c["tri_rec"].numpy()
     n_pages, sp = page.shape[0], resident.SPAN
@@ -397,7 +415,7 @@ def _walk_warp(c, ray, any_hit):
                         return True
                     continue
                 for g in groups:
-                    if not _slab_np(grp[cid * 8 + g], o, inv, best):
+                    if group_retest and not _slab_np(grp[cid * 8 + g], o, inv, best):
                         continue
                     cand = [(t[q], ks[q], q) for q in range(ks.size)
                             if ks[q] // 16 == g and ok[q] and t[q] < best]
@@ -422,6 +440,28 @@ def test_kernel_warp_walk_matches_twin(sphere_case, any_hit):
         else:
             res = _walk_warp(c, r[:, i], any_hit)
         assert _same_result(twin, i, res, any_hit), i
+
+
+def test_kernel_warp_walk_coplanar_layers():
+    """Where the in-turn group test decides results (tools/resident_steps.py
+    `retest_case`: coplanar layers in two groups of one cluster, hits a
+    few ulps apart), the kernel's walk gives the twin's bits, and without
+    that test it does not. The span, page and cluster tests in turn only
+    skip work: their boxes nest (span > page > cluster > group, each the
+    float min/max of the next), so a box that fails at the best t of the
+    moment fails the group test at once behind it too."""
+    c, rays = retest_case("cpu")
+    r = rays.numpy()
+    twin = resident.intersect_closest_twin(c, rays)
+    occ = resident.intersect_any_twin(c, rays)
+    assert bool(occ.all()) and bool(twin["hit"].all())
+    assert len(set(twin["prim"].tolist())) > 4
+    decided = 0
+    for i in range(r.shape[1]):
+        assert _same_result(twin, i, _walk_warp(c, r[:, i], False), False), i
+        assert _same_result(occ, i, _walk_warp(c, r[:, i], True), True), i
+        decided += not _same_result(twin, i, _walk_warp(c, r[:, i], False, False), False)
+    assert decided >= 10, decided
 
 
 def _emissive_spheres():
