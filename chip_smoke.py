@@ -222,10 +222,15 @@ def nbytes(*ts) -> int:
 
 
 def bound(n_bytes: float, n_ops: float):
-    """(least ms, what sets it) from the bytes moved and float ops done."""
+    """(least ms, what sets it, least ms unfused) from the bytes moved and
+    float ops done. PEAK_FP32_PER_S counts a fused multiply-add as two
+    operations; the kernels are built with -fmad=false (_build.NVCC_FLAGS),
+    so a product and a sum each issue alone, at half that rate: the third
+    term is the larger of the bytes' time and the operations' at that
+    rate."""
     t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_o = n_ops / PEAK_FP32_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    return ((t_b, "bytes") if t_b >= t_o else (t_o, "operations")) + (max(t_b, 2.0 * t_o),)
 
 
 def mega_bytes(cfg, pf, kernels, d, n, tr, tables, sv, usv):
@@ -1052,8 +1057,8 @@ def main() -> None:
         "final_resolve": bound(nbytes(st, pend, rays[:, :3 * n], hf.hits) + 12 * n,
                                n * STAGE_OPS["final_resolve"]),
     }
-    for k, (ms, by) in bounds1.items():
-        print(f"[5] {k}: bound {ms:.4f} ms ({by})")
+    for k, (ms, by, unfused) in bounds1.items():
+        print(f"[5] {k}: bound {ms:.4f} ms ({by}), unfused {unfused:.4f} ms")
     # both terms: the kernels build -fmad=false, so each product and sum
     # issues on its own, at half the 67 TFLOP/s the operation term uses
     for k, (b, o) in work1.items():
@@ -1309,7 +1314,7 @@ def main() -> None:
                                    ca["slab"] * SLAB_OPS + ca["tri"] * TRI_OPS
                                    + ca["key"] * KEY_OPS)}
         for name, st_, view in (("closest", cs, rad_view), ("any", ca, occ_view)):
-            b_ms, b_by = walk_bounds[walk][f"clustered_{name}"]
+            b_ms, b_by, _ = walk_bounds[walk][f"clustered_{name}"]
             print(f"[9] {name}, {walk}: {view.shape[1]} rays, {int((view[6] > 0).sum())} live, "
                   f"{st_['slab']} slab, {st_['tri']} triangle and {st_['key']} key-bound "
                   f"tests, table bytes read {st_['table_bytes']} of "
@@ -1332,8 +1337,8 @@ def main() -> None:
         "final_resolve": bound(nbytes(st, pend, rays[:, :(nb2 - 1) * ns], trf.occ) + 12 * ns,
                                ns * STAGE_OPS["final_resolve"]),
     }
-    for k, (ms, by) in bounds2.items():
-        print(f"[9] {k}: bound {ms:.4f} ms ({by})")
+    for k, (ms, by, unfused) in bounds2.items():
+        print(f"[9] {k}: bound {ms:.4f} ms ({by}), unfused {unfused:.4f} ms")
 
     # B4/B5 in every kept variant, in turns: CUDA events around the wrapper
     # calls (the kernel table's times) and CUDA-graph replays (device time
@@ -1675,7 +1680,10 @@ def main() -> None:
         print(f"[16] {name}: {ms:.4f} ms, {rate:.1f} {unit} on {card}")
     times16 = {"probe_fma": (rates["fma f32"][0],
                              cuda_ms(lambda: probe.fma_chain_twin(x16), 1))}
-    bounds16 = {"probe_fma": bound(8 * x16.numel(), probe.FLOPS_PER_ELEMENT * x16.numel())}
+    # P1 issues its multiply-adds as fmaf, which -fmad=false keeps: the
+    # fused rate applies to it, and its unfused bound is its bound
+    b16 = bound(8 * x16.numel(), probe.FLOPS_PER_ELEMENT * x16.numel())
+    bounds16 = {"probe_fma": (b16[0], b16[1], b16[0])}
     print(f"[16] probe_fma f32 [{x16.shape[0]},128]: kernel {times16['probe_fma'][0]:.4f} ms, "
           f"twin {times16['probe_fma'][1]:.4f} ms, bound {bounds16['probe_fma'][0]:.4f} ms "
           f"({bounds16['probe_fma'][1]}); {probe.FLOPS_PER_ELEMENT} flops an element")
@@ -2003,7 +2011,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
          "launches": int(lch.get(key, 0)), "max_abs_err": results[name],
          "ms": tms[name][0], "plain_ms": tms[name][1], "bound_ms": bnd[name][0],
-         "bound_by": bnd[name][1], "library_ms": None, **extra_res.get(name, {})}
+         "bound_by": bnd[name][1], "bound_unfused_ms": bnd[name][2], "library_ms": None,
+         **extra_res.get(name, {})}
         for name, f, rep, key, tms, bnd, lch in table
     ]
     print(f"[6] phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
