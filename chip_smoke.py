@@ -5,15 +5,21 @@ Run from the repository root:  python3 chip_smoke.py
 (`--against CSRC_DIR`, which may repeat, also times other trees' B1 and
 mega kernels in turns with this tree's: phases 1, 5 and 9, in phase 20
 mega's full variant and in phase 23 its textured one, of the trees that
-have them, and in phase 13 their B7. A tree's
+have them, and in phase 13 their B7; phase 1 says which kernels each
+tree compiles to the same machine code as this one, and phase 18 holds
+each tree's full variant to its twins beside this tree's. A tree's
 kernels take this tree's launch-argument struct, csrc/common.cuh
-`ShadeArgs`: an older tree's copy needs its struct brought level first)
+`ShadeArgs`: an older tree's copy needs its struct brought level first,
+or shares its fields in order and ends sooner. `--probe CSRC_DIR`, which
+may repeat, times a measurement copy's full variant in phase 20 beside
+them, its outputs not held equal)
 
 Phases, each printing before the next; any failure raises and the script
 exits non-zero without the final `ok` line:
 
 0. the card's name and power limit (nvidia-smi); no CUDA device -> error
 1. build the CUDA kernels from csrc/ (nvcc), print build time and spills
+   (and each --against tree's SASS against this tree's, kernel by kernel)
 2. dense closest-hit kernel (B1) vs its twin, bit-equal (t, u, v, prim):
    Cornell with 4 x 512^2 rays from a real raygen + first bounce, a
    1024-triangle soup with 2^20 rays (dead lanes and rays at shared edges
@@ -94,7 +100,8 @@ exits non-zero without the final `ok` line:
     (tools/gen_goldens.py) at 512x512 with the golden's scene, camera,
     sky, sun and depth: clear_coat (coat), sheen (sheen, sun block),
     transmission_rough (transmission, depth 6, lanes shading from inside
-    the spheres counted) and diffuse_transmission (diffuse_t, sun)
+    the spheres counted) and diffuse_transmission (diffuse_t, sun); each
+    --against tree's full variant on the same inputs, its error beside
 19. the nine goldens the port gained (furnace, thinlens, metal_rough_grid
     and the six lobe goldens: clear_coat, sheen, transmission,
     transmission_rough, spec_transmission, diffuse_transmission) through
@@ -105,8 +112,12 @@ exits non-zero without the final `ok` line:
     depth, 8 x render(1) after 2 warm-up spp, with launch counts (and for
     spec_transmission the profiler's busy share and top kernels); then the
     full variant at transmission_rough's d = 1 vs its twin (CUDA events
-    and a graph replay) beside both terms of its bound, and in turns with
-    the full variant of each --against tree that has one
+    and a graph replay) beside both terms of its bound: the live and
+    shading shares, per warp of 32 the distinct lobe sets its shading
+    lanes evaluate and their union (fredholm_tpu_torch/tools/
+    mega_lanes.py), the same inputs with every lane dead held to the
+    twin, and both timed in turns with the full variant of each
+    --against tree that has one and of each --probe copy
 21. mega's textured variant (k_mega_tex) and the final resolve's textured
     instance vs their twins: the ptxas line, then compare_stages at each d
     of the three texture goldens' setups (texture: a base-color checker;
@@ -180,6 +191,27 @@ REPLACED_MS = {
 # texture setup it is timed on
 STAGE_OPS = {"raygen": 300, "mega": 1500, "mega_full": 3300, "mega_tex": 3450,
              "final_resolve": 150}
+
+
+def sass_by_kernel(lib_path: str, cuobjdump: str) -> dict:
+    """{kernel: [instruction, ...]} of a built kernel library
+    (`cuobjdump -sass`), without addresses and encodings; the kernel
+    names lose the hashes nvcc gives each file's anonymous namespace."""
+    import re
+
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                         check=True, timeout=600).stdout
+    kernels, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_(\d+_\w+?_cu)_[0-9a-f]+", r"_\1", m.group(1))
+            cur = kernels.setdefault(name, [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    return kernels
 
 
 def card_line() -> str:
@@ -530,12 +562,13 @@ def time_turns(tag, calls, rounds, show=True):
     return out
 
 
-def tree_turns(tag, build, trees, fns, rounds):
+def tree_turns(tag, build, trees, fns, rounds, unheld=()):
     """{kernel: {tree: (events ms, graph ms)}}: each of fns ({kernel:
     wrapper call}) under each tree's library (`trees`: {name: library},
     THIS_TREE's first), timed by time_turns (printed with more than one
     tree). Before the turns each other tree's outputs are held equal to
-    this tree's (NaN equal to NaN)."""
+    this tree's (NaN equal to NaN), but those of the trees in `unheld`
+    (measurement copies)."""
     import torch
 
     def under(handle, fn):
@@ -554,7 +587,7 @@ def tree_turns(tag, build, trees, fns, rounds):
     calls = {(k, t): under(h, fn) for k, fn in fns.items() for t, h in trees.items()}
     for k in fns:
         want = planes(calls[(k, THIS_TREE)]())
-        for t in list(trees)[1:]:
+        for t in [t for t in list(trees)[1:] if t not in unheld]:
             got = planes(calls[(k, t)]())
             for x, y in zip(got, want):
                 same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
@@ -843,6 +876,10 @@ def parse_args(argv):
                    "mega's full variant at transmission_rough's d = 1 ([20]) and its "
                    "textured one at texture's d = 1 ([23]) where the tree has them, and "
                    "its B7 on [13]'s rays, after holding their outputs equal; may repeat")
+    p.add_argument("--probe", action="append", default=[], metavar="CSRC_DIR",
+                   help="also build CSRC_DIR, a measurement copy of a tree (e.g. from "
+                   "`python3 -m fredholm_tpu_torch.tools.mega_lanes`), and time its full "
+                   "mega variant in turns at [20], its outputs not held equal; may repeat")
     return p.parse_args(argv)
 
 
@@ -871,6 +908,7 @@ def main() -> None:
         sphere_array_test,
         terrain,
     )
+    from fredholm_tpu_torch.tools import mega_lanes
     from fredholm_tpu_torch.tools import probe_bf16 as probe
     from fredholm_tpu_torch.tools import resident_steps as res_steps
 
@@ -883,20 +921,35 @@ def main() -> None:
         phase_s[k] = time.perf_counter() - t0
         print(f"[{k}] phase seconds: {phase_s[k]:.1f}")
 
-    # ---- 1: build
+    # ---- 1: build: this tree's kernels, and meanwhile each other tree's in
+    # a process of its own
     t0 = time.perf_counter()
+    others = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                                "from fredholm_tpu_torch import _build; _build.build(sys.argv[2])",
+                                ROOT, os.path.abspath(csrc)]) for csrc in args.against + args.probe]
     _build.lib()
+    if any(p.wait() != 0 for p in others):
+        raise RuntimeError("[1] a tree given by --against or --probe did not build")
     print(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(parallel nvcc + link {_build.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
         print(f"[1] ptxas {name}: {info}")
     trees = {THIS_TREE: _build.lib()}
     tree_infos = {THIS_TREE: _build.BUILD_INFO}  # each tree's build record (ptxas)
+    lib_paths = {THIS_TREE: _build.build()}
     full_trees = [THIS_TREE]  # the trees with mega's full variant
     tex_trees = [THIS_TREE]  # the trees with mega's textured variant
+    probes = {}  # the measurement copies (--probe): {name: library}
+    for csrc in args.probe:
+        info = {}
+        probes[csrc] = _build.load(_build.build(os.path.abspath(csrc), info))
+        for name, regs in info.get("ptxas", {}).items():
+            if "k_mega_full" in name:
+                print(f"[1] ptxas {csrc} {name}: {regs}")
     for csrc in args.against:
         info = {}
-        trees[csrc] = _build.load(_build.build(os.path.abspath(csrc), info))
+        lib_paths[csrc] = _build.build(os.path.abspath(csrc), info)
+        trees[csrc] = _build.load(lib_paths[csrc])
         tree_infos[csrc] = info
         for name, regs in info.get("ptxas", {}).items():
             if "dense_closest" in name or "k_mega" in name or "k_resident" in name:
@@ -905,9 +958,19 @@ def main() -> None:
             full_trees.append(csrc)
         if any("k_mega_tex" in name for name in info.get("ptxas", {})):
             tex_trees.append(csrc)
+    if len(trees) > 1:
+        # which kernels each other tree compiles to the same machine code
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+        sass = {t: sass_by_kernel(p, cuobjdump) for t, p in lib_paths.items()}
+        for t in list(trees)[1:]:
+            same = sorted(k for k in sass[THIS_TREE] if sass[t].get(k) == sass[THIS_TREE][k])
+            other = {k: (len(sass[THIS_TREE][k]), len(sass[t].get(k, [])))
+                     for k in sass[THIS_TREE] if k not in same}
+            print(f"[1] SASS against {t}: identical {len(same)} kernels {same}; differing "
+                  f"(instructions here, there) {other}")
     # turns of each timing against the other trees: their differences are
     # a few percent, so more turns than for this tree alone
-    rounds = 6 if len(trees) > 1 else 2
+    rounds = 6 if len(trees) + len(probes) > 1 else 2
     phase_done(1, t0)
 
     results = {}
@@ -1768,6 +1831,13 @@ def main() -> None:
         full_err.append(res18["mega"])
         for k in ("raygen", "final_resolve"):
             results[k] = max(results[k], res18[k])
+        for t in full_trees[1:]:
+            with _build.using(trees[t]):
+                res_t = compare_stages(f"[18] {name} {t}", cfg18, pf, kernels, sv18, usv18,
+                                       r._dev, n_spp18, stage_tracer(pf, cfg18, r._dev, n18),
+                                       depths=range(cfg18.max_depth))
+            print(f"[18] {name}: mega max|err| this tree {res18['mega']:.3g}, {t} "
+                  f"{res_t['mega']:.3g}")
     results["mega_full"] = max(full_err)
     phase_done(18, t0)
 
@@ -1832,20 +1902,62 @@ def main() -> None:
     sv20, usv20 = pf.pack_scalars(p20, n20, dev)
     n_spp20 = torch.full((n20,), 3, dtype=torch.int64, device=dev)
     tracer20 = stage_tracer(pf, cfg20, r._dev, n20)
-    st, si, rays = kernels.raygen(cfg20, sv20, usv20, n_spp20)
-    st, rays, pend, _ = kernels.mega(cfg20, 0, sv20, usv20, r._dev, n_spp20, si, st, rays, None,
-                                     tracer20(rays, 0))
+    st0_20, si, rays0_20 = kernels.raygen(cfg20, sv20, usv20, n_spp20)
+    st, rays, pend, _ = kernels.mega(cfg20, 0, sv20, usv20, r._dev, n_spp20, si, st0_20,
+                                     rays0_20, None, tracer20(rays0_20, 0))
     tr20 = tracer20(rays, 1)
 
-    def full20():
-        return kernels.mega(cfg20, 1, sv20, usv20, r._dev, n_spp20, si, st, rays, pend, tr20)
+    def full20(st_in=st):
+        return kernels.mega(cfg20, 1, sv20, usv20, r._dev, n_spp20, si, st_in, rays, pend, tr20)
 
     times20 = time_pairs("[20]", {"mega_full": (full20, lambda: pf.mega_twin(
         cfg20, 1, sv20, usv20, r._dev, n_spp20, si, st, rays, pend, tr20))}, {})
     graph20 = graph_ms(full20)
-    if len(full_trees) > 1:
-        tree_turns("[20] transmission_rough d=1", _build, {t: trees[t] for t in full_trees},
-                   {"mega_full": full20}, rounds)
+    # what the lanes ask of the kernel: the live share, the shading share
+    # (the shading pass's lanes), and per warp of 32 the distinct lobe
+    # sets its shading lanes evaluate and their union
+    shading20 = mega_lanes.shading_lanes(cfg20, st, tr20, n20, 1)
+    lobes20 = mega_lanes.warp_lobe_stats(
+        mega_lanes.eval_lobes(cfg20, r._dev, st, tr20, n20, 1), shading20)
+    alive20 = int((st[pf.ST_ALIVE] != 0).sum())
+    print(f"[20] transmission_rough d=1: {n20} lanes, alive {alive20} ({alive20 / n20:.4f}), "
+          f"shading (alive and hit) {lobes20['shading_lanes']} "
+          f"({lobes20['shading_lanes'] / n20:.4f}); eval_lobes per warp of 32: "
+          f"{json.dumps(lobes20)}")
+    # the all-dead floor: the same inputs with every lane dead, held to
+    # the twin at [18]'s bar
+    st_dead20 = st.clone()
+    st_dead20[pf.ST_ALIVE] = 0.0
+    ko, to = full20(st_dead20), pf.mega_twin(cfg20, 1, sv20, usv20, r._dev, n_spp20, si,
+                                             st_dead20, rays, pend, tr20)
+    compare_planes("all dead state", ko[0], to[0], [pf.ST_ALIVE], "[20]")
+    compare_planes("all dead rays", ko[1], to[1], [6], "[20]")
+    compare_planes("all dead pending", ko[2], to[2], tag="[20]")
+    fns20 = {"mega_full": full20, "mega_full all dead": lambda: full20(st_dead20)}
+    turns20 = tree_turns("[20] transmission_rough d=1", _build,
+                         {**{t: trees[t] for t in full_trees}, **probes}, fns20,
+                         rounds, unheld=probes)
+    print("[20] mega_full graph ms: " + ", ".join(
+        f"{t}: {turns20['mega_full'][t][1]:.5f} (all dead {turns20['mega_full all dead'][t][1]:.5f})"
+        for t in turns20["mega_full"]))
+    # the bounces around it: d = 0, where many lanes shade, and d = 2
+    st_d, rays_d, pend_d = st0_20, rays0_20, None
+    for d in range(3):
+        tr_d = tracer20(rays_d, d)
+        if d != 1:
+            shading_d = int(mega_lanes.shading_lanes(cfg20, st_d, tr_d, n20, d).sum())
+            print(f"[20] transmission_rough d={d}: shading {shading_d} ({shading_d / n20:.4f})")
+        if d != 1 and len(full_trees) > 1:
+            tree_turns(f"[20] transmission_rough d={d}", _build,
+                       {t: trees[t] for t in full_trees},
+                       {"mega_full": lambda: kernels.mega(cfg20, d, sv20, usv20, r._dev, n_spp20, si,
+                                                          st_d, rays_d, pend_d, tr_d)}, rounds)
+        st_d, rays_d, pend_d, _ = kernels.mega(cfg20, d, sv20, usv20, r._dev, n_spp20, si, st_d,
+                                               rays_d, pend_d, tr_d)
+    for t, info in tree_infos.items():
+        if t in full_trees:
+            print(f"[20] ptxas {t}: " + json.dumps(
+                {k: v for k, v in info.get("ptxas", {}).items() if "k_mega_full" in k}))
     work20 = (mega_bytes(cfg20, pf, kernels, 1, n20, tr20, r._dev, sv20, usv20),
               n20 * STAGE_OPS["mega_full"])
     bounds20 = {"mega_full": bound(*work20)}

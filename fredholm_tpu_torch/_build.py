@@ -18,6 +18,7 @@ import collections
 import contextlib
 import ctypes
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -84,11 +85,16 @@ def build(csrc_dir: str = CSRC_DIR, info: dict = BUILD_INFO) -> str:
     """Compile the kernels of csrc_dir (the package's own by default;
     chip_smoke.py --against builds another tree's to time it beside these)
     if no library for these sources exists; returns the library path and
-    records the build in `info`. Raises on any compiler error."""
+    records the build in `info` (a library built before, by this process
+    or another, gives the registers and spills its build recorded beside
+    it). Raises on any compiler error."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"libfh_kernels_{_source_hash(csrc_dir)}.so")
     if os.path.exists(lib_path):
         info.setdefault("seconds", 0.0)
+        if os.path.exists(lib_path + ".json"):
+            with open(lib_path + ".json") as f:
+                info.setdefault("ptxas", json.load(f))
         return lib_path
     nvcc = _nvcc()
     tag = f"{os.getpid()}"
@@ -111,9 +117,13 @@ def build(csrc_dir: str = CSRC_DIR, info: dict = BUILD_INFO) -> str:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
     for o in objs:
         os.remove(o)
-    os.replace(tmp, lib_path)
     log = "".join(logs)
-    info.update(seconds=time.perf_counter() - t0, ptxas=_parse_ptxas(log), log=log)
+    ptxas = _parse_ptxas(log)
+    with open(f"{tmp}.json", "w") as f:
+        json.dump(ptxas, f)
+    os.replace(f"{tmp}.json", lib_path + ".json")
+    os.replace(tmp, lib_path)
+    info.update(seconds=time.perf_counter() - t0, ptxas=ptxas, log=log)
     return lib_path
 
 
@@ -162,6 +172,7 @@ class ShadeArgs(ctypes.Structure):
         ("tex_mask", ctypes.c_int),
         ("n_tex_runs", ctypes.c_int),
         ("tex_runs", ctypes.c_void_p),
+        ("lane_queue", ctypes.c_void_p),
     ]
 
 

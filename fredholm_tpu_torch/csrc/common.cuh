@@ -57,6 +57,9 @@ struct ShadeArgs {
   int tex_mask;               // bit k: pt_fused.TEX_KINDS[k] a material uses
   int n_tex_runs;             // rows of tex_runs
   const unsigned* tex_runs;   // [n_tex_runs, 16] texel runs (scene/texture.py)
+  int* lane_queue;            // [2 + N] scratch of mega's full variant: its
+                              //   shading lanes' count, the count taken,
+                              //   then their indices
 };
 
 // packed plane rows (fused/pt_fused.py)

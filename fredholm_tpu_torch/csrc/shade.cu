@@ -61,9 +61,9 @@
 //   or 3 (128, no spills), which take 1.03-1.08x its time on metric 1's
 //   bounces; the rich one at 5 (96 registers, 104 B) against 6 (80, 220
 //   B) and 3 (152, none), which take 1.15x its time on metric 2's d = 1;
-//   the full one at 4 (128 registers, 88 B) against 5 (96, 264 B) and 3
-//   (164, none), which take 1.06x and 1.16x its time at
-//   transmission_rough's d = 1.
+//   the full one's whole body at 4 (128 registers) against 5 (96) and 3
+//   (164), which took 1.06x and 1.16x its time at transmission_rough's
+//   d = 1.
 // - A short path through the same body for lanes that shade nothing (not
 //   alive, or their ray missed): the work whose results the body masks away
 //   for them (the NEE BSDF evaluations and skies, the next bounce's sample
@@ -78,6 +78,36 @@
 // on metric 1's bounces, 1.03x on metric 2's), and staging the fused_table
 // and material rows in shared memory as 16-byte records (no gain beyond
 // the noise, and more registers).
+//
+// The full variant past d = 0, for what held it in one pass (PERF.md, at
+// transmission_rough's d = 1): under 5% of the lanes shade (alive, and
+// their ray hit), bunched in image space (1,598 of 8,192 warps, ~7.7
+// each), while every lane runs the BSDF setup and the light ray's sample,
+// whose direction and pdf it writes. One body at 128 registers ran the
+// floor of the other 95% at the shading lanes' 4 blocks an SM, and each
+// warp holding a few shading lanes ran their long chain for them. The
+// lobes vary little inside a warp (at most 3 sets, 1.15 on average):
+// divergence across lobes is not the cost.
+// - The floor pass (`k_mega_full`): a lane that shades nothing runs the
+//   body with `alive` false at compile time, so the evaluations, the next
+//   bounce's sample and all that only feeds a contribution (the light
+//   sample's value, the layer multipliers, the metal Fresnel) fold away:
+//   80 registers, 6 blocks an SM.
+// - The shading pass (`k_mega_full_shade`): the shading lanes, queued in
+//   lane order one atomic a warp (`k_mega_full_queue`), run the whole body
+//   32 to a warp. They are too few warps to hide one body's chain, so the
+//   pass does not follow the floor pass: it starts first and lets the
+//   floor pass launch beside it (programmatic dependent launch), and the
+//   floor pass's last block waits for it. Where an eighth of the lanes or
+//   more shade, it runs the whole body on every lane, and the floor pass
+//   none; at d = 0, where many do (38% at transmission_rough's),
+//   `k_mega_full_all` alone does that.
+// Measured and dropped for it (PERF.md): the two passes in turn (the
+// shading pass's chain after the floor), in one kernel taking the queue
+// first (the floor at the shading pass's registers), on two streams (no
+// order between the two grids), a lane's three sections (NEE, light ray,
+// next bounce) on three warps (three times the loads), and each block
+// packing its own run of lanes (the bunched runs' chains in turn).
 #include "common.cuh"
 
 namespace {
@@ -86,7 +116,8 @@ constexpr int kBlock = 128;
 // the resident blocks an SM that ptxas fits each mega variant's registers to
 constexpr int kMegaBlocksPlain = 6;
 constexpr int kMegaBlocksRich = 5;
-constexpr int kMegaBlocksFull = 4;
+constexpr int kMegaBlocksFull = 4;   // the full variant's shading pass
+constexpr int kMegaBlocksFloor = 6;  // and its floor pass
 constexpr int kMegaBlocksTex = 4;
 
 __device__ __forceinline__ V3 ld3(const float* __restrict__ p, int row, long long stride, long long i) {
@@ -383,11 +414,15 @@ __global__ void __launch_bounds__(kBlock) k_raygen(const ShadeArgs a) {
   a.rays_out[6 * n + i] = tmax;
 }
 
-// the body of every mega variant; kFull (which implies kRich) shades with
-// the full BSDF, kTex (which implies kFull) applies the textures
-template <bool kRich, bool kFull, bool kTex>
-__device__ __forceinline__ void mega_body(const ShadeArgs& a) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// How a launch runs the body: as it stands (kPassAll), or, in the full
+// variant's floor pass, on lanes that shade nothing (kPassFloor)
+constexpr int kPassAll = 0, kPassFloor = 1;
+
+// the body of every mega variant on lane i; kFull (which implies kRich)
+// shades with the full BSDF, kTex (which implies kFull) applies the
+// textures
+template <bool kRich, bool kFull, bool kTex, int kPass = kPassAll>
+__device__ __forceinline__ void mega_body(const ShadeArgs& a, int i) {
   if (i >= a.n) return;
   const long long n = a.n;
   const int d = a.d;
@@ -421,6 +456,9 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
     rad = rad + sky;
   }
   alive = alive && hit;
+  // the floor pass runs only lanes that shade nothing: every branch on
+  // `alive` below folds away, and with it all that only they use
+  if constexpr (kPass == kPassFloor) alive = false;
   nv = nv + (alive ? 1.0f : 0.0f);
 
   Geom g;
@@ -639,15 +677,73 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a) {
 template <bool kRich>
 __global__ void __launch_bounds__(kBlock, kRich ? kMegaBlocksRich : kMegaBlocksPlain)
     k_mega(const ShadeArgs a) {
-  mega_body<kRich, false, false>(a);
+  mega_body<kRich, false, false>(a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full(const ShadeArgs a) {
-  mega_body<true, true, false>(a);
+// whether lane i shades bounce d: alive, and its ray hit (at d = 0 an
+// emissive first hit then ends it, which the whole body decides)
+__device__ __forceinline__ bool shades(const ShadeArgs& a, int i) {
+  const long long ri = (a.d == 0 ? 0 : blocks_of(a).rad - a.hit_block0) * (long long)a.n + i;
+  return a.state_in[ST_ALIVE * (long long)a.n + i] != 0.0f && a.hit_prim[ri] >= 0;
+}
+
+// whether so many of the lanes shade (count of them) that the shading
+// pass runs the whole body on every lane in order, and the floor pass
+// none
+__device__ __forceinline__ bool many_shade(const ShadeArgs& a, int count) { return 8 * count > a.n; }
+
+// The full variant's queue: the lanes that shade (lane_queue[0] counts
+// them, their indices go to lane_queue[2 + slot]), one atomic a warp;
+// lane_queue[1] counts the floor pass's finished blocks
+__global__ void __launch_bounds__(kBlock) k_mega_full_queue(const ShadeArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const bool s = shades(a, i);
+  const unsigned q = __ballot_sync(__activemask(), s);
+  if (!s) return;
+  const int lane = threadIdx.x & 31, leader = __ffs(q) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(a.lane_queue, __popc(q));
+  base = __shfl_sync(q, base, leader);
+  a.lane_queue[2 + base + __popc(q & ((1u << lane) - 1u))] = i;
+}
+
+// The full variant's shading pass: the whole body on the queued lanes, 32
+// to a warp, from the first block on (the blocks past the queue end at
+// once). Its blocks start first, and each lets the floor pass launch
+// beside it at once (griddepcontrol.launch_dependents), so its long chains
+// run beside the floor pass, not after it.
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full_shade(const ShadeArgs a) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int count = a.lane_queue[0];
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  // lane k itself where many shade, else the k-th queued lane (none past
+  // the queue's end)
+  const int i = many_shade(a, count) ? k : (k < count ? a.lane_queue[2 + k] : a.n);
+  mega_body<true, true, false>(a, i);
+}
+
+// The full variant's floor pass: a lane that shades nothing runs the body
+// with `alive` false at compile time. The last of its blocks to finish
+// waits for the shading pass (griddepcontrol.wait), so the launch ends
+// after both.
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFloor) k_mega_full(const ShadeArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.n && !many_shade(a, a.lane_queue[0]) && !shades(a, i))
+    mega_body<true, true, false, kPassFloor>(a, i);
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(a.lane_queue + 1, 1) == (int)gridDim.x - 1)
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The full variant at d = 0, where many lanes shade: the whole body on
+// every lane
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full_all(const ShadeArgs a) {
+  mega_body<true, true, false>(a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 __global__ void __launch_bounds__(kBlock, kMegaBlocksTex) k_mega_tex(const ShadeArgs a) {
-  mega_body<true, true, true>(a);
+  mega_body<true, true, true>(a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 // kTex implies kRich
@@ -670,14 +766,36 @@ extern "C" int fh_raygen(const ShadeArgs* a, cudaStream_t stream) {
 }
 
 extern "C" int fh_mega(const ShadeArgs* a, cudaStream_t stream) {
-  if (a->tex_mask != 0)
+  if (a->tex_mask != 0) {
     k_mega_tex<<<grid(a->n), kBlock, 0, stream>>>(*a);
-  else if (needs_full(a))
-    k_mega_full<<<grid(a->n), kBlock, 0, stream>>>(*a);
-  else if (needs_rich(a))
+  } else if (needs_full(a) && a->d == 0) {
+    k_mega_full_all<<<grid(a->n), kBlock, 0, stream>>>(*a);
+  } else if (needs_full(a)) {
+    // the queue's two counters zeroed, the queue, the shading pass, then
+    // the floor pass launched beside it (programmatic stream
+    // serialization)
+    if (a->lane_queue == nullptr) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaMemsetAsync(a->lane_queue, 0, 2 * sizeof(int), stream);
+    if (e != cudaSuccess) return (int)e;
+    k_mega_full_queue<<<grid(a->n), kBlock, 0, stream>>>(*a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    k_mega_full_shade<<<grid(a->n), kBlock, 0, stream>>>(*a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    cudaLaunchAttribute beside[1];
+    beside[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    beside[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid(a->n));
+    cfg.blockDim = dim3(kBlock);
+    cfg.stream = stream;
+    cfg.attrs = beside;
+    cfg.numAttrs = 1;
+    if ((e = cudaLaunchKernelEx(&cfg, k_mega_full, *a)) != cudaSuccess) return (int)e;
+  } else if (needs_rich(a)) {
     k_mega<true><<<grid(a->n), kBlock, 0, stream>>>(*a);
-  else
+  } else {
     k_mega<false><<<grid(a->n), kBlock, 0, stream>>>(*a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -231,11 +231,17 @@ def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     pending_out = torch.empty((pf.PD_ROWS, n), dtype=torch.float32, device=dev)
     aov = (torch.empty((pf.AOV_ROWS, n), dtype=torch.float32, device=dev)
            if d == 0 else None)
+    variant = mega_variant(cfg)
+    # the full variant's scratch: the queue of its shading lanes
+    # (csrc/shade.cu)
+    queue = torch.empty((2 + n,), dtype=torch.int32, device=dev) if variant == "full" else None
+    if queue is not None:
+        ptrs["lane_queue"] = queue.data_ptr()
     a = _args(cfg, sv, usv, n_spp, state_out=state_out.data_ptr(),
               rays_out=rays_out.data_ptr(), pending_out=pending_out.data_ptr(),
               aov_out=aov.data_ptr() if aov is not None else None, **ptrs)
     _launch("mega", _build.lib().fh_mega, a, dev)
-    _build.LAUNCHES["mega_" + mega_variant(cfg)] += 1
+    _build.LAUNCHES["mega_" + variant] += 1
     return state_out, rays_out, pending_out, aov
 
 

@@ -9,6 +9,7 @@ reference body on the same numbers. Also checks that the CUDA header's
 column constants and launch-argument struct agree with the Python side.
 """
 
+import json
 import os
 import re
 
@@ -319,6 +320,24 @@ def test_cuda_header_matches_python_layout():
     body = src[src.index("struct ShadeArgs {"):src.index("};", src.index("struct ShadeArgs {"))]
     fields = re.findall(r"(\w+);", body)
     assert fields == [f for f, _ in _build.ShadeArgs._fields_]
+
+
+def test_build_reads_a_built_librarys_record(tmp_path, monkeypatch):
+    """A library already built for these sources (by another process, as
+    chip_smoke.py builds other trees) is returned without nvcc, with the
+    registers and spills its build recorded beside it."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("nvcc called"))
+    lib = tmp_path / f"libfh_kernels_{_build._source_hash(_build.CSRC_DIR)}.so"
+    lib.write_bytes(b"")
+    info = {}
+    assert _build.build(_build.CSRC_DIR, info) == str(lib)
+    assert info == {"seconds": 0.0}
+    rec = {"k_mega_full": {"registers": 80, "spill_stores": 8, "spill_loads": 8}}
+    (tmp_path / (lib.name + ".json")).write_text(json.dumps(rec))
+    info = {}
+    assert _build.build(_build.CSRC_DIR, info) == str(lib)
+    assert info == {"seconds": 0.0, "ptxas": rec}
 
 
 def test_renderer_cuda_without_card_raises():
