@@ -37,19 +37,13 @@ from ..fused import pt_fused as pf
 from ..fused.cvec import V3, cross, dot, normalize
 
 
-def rad_prims(cfg: pf.FusedConfig, tr: pf.Traced, n: int, d: int) -> torch.Tensor:
-    """The closest-hit prims of bounce d's radiance block [n]."""
-    b = 0 if d == 0 else cfg.blocks.index("rad")
-    j = b - tr.n_occ(n)
-    return tr.hits["prim"][j * n:(j + 1) * n]
-
-
 def shading_lanes(cfg: pf.FusedConfig, state: torch.Tensor, tr: pf.Traced, n: int,
                   d: int) -> torch.Tensor:
     """[n] bool: the lanes that shade bounce d, alive in `state` (packed
     [ST_ROWS, n]) with a hit in the radiance block (csrc/shade.cu
     `shades`)."""
-    return (state[pf.ST_ALIVE] != 0.0) & (rad_prims(cfg, tr, n, d) >= 0)
+    j = (0 if d == 0 else cfg.blocks.index("rad")) - tr.n_occ(n)
+    return (state[pf.ST_ALIVE] != 0.0) & (tr.hits["prim"][j * n:(j + 1) * n] >= 0)
 
 
 def eval_lobes(cfg: pf.FusedConfig, tables: Dict, state: torch.Tensor, tr: pf.Traced,
