@@ -10,9 +10,7 @@ tree compiles to the same machine code as this one, and phase 18 holds
 each tree's full variant to its twins beside this tree's. A tree's
 kernels take this tree's launch-argument struct, csrc/common.cuh
 `ShadeArgs`: an older tree's copy needs its struct brought level first,
-or shares its fields in order and ends sooner. `--probe CSRC_DIR`, which
-may repeat, times a measurement copy's full variant in phase 20 beside
-them, its outputs not held equal)
+or shares its fields in order and ends sooner)
 
 Phases, each printing before the next; any failure raises and the script
 exits non-zero without the final `ok` line:
@@ -110,14 +108,17 @@ exits non-zero without the final `ok` line:
     image mean within 1% of 0.5
 20. the lobe metrics: the six lobe goldens' setups at 512x512 and their
     depth, 8 x render(1) after 2 warm-up spp, with launch counts (and for
-    spec_transmission the profiler's busy share and top kernels); then the
-    full variant at transmission_rough's d = 1 vs its twin (CUDA events
-    and a graph replay) beside both terms of its bound: the live and
-    shading shares, per warp of 32 the distinct lobe sets its shading
-    lanes evaluate and their union (fredholm_tpu_torch/tools/
-    mega_lanes.py), the same inputs with every lane dead held to the
-    twin, and both timed in turns with the full variant of each
-    --against tree that has one and of each --probe copy
+    spec_transmission the profiler's busy share and top kernels), each
+    also end to end in turns under the kernels of each --against tree
+    with a full variant; then the full variant at transmission_rough's
+    d = 1 vs its twin (CUDA events and a graph replay) beside both terms
+    of its bound: the live and shading shares, per warp of 32 the
+    distinct lobe sets its shading lanes evaluate and their union
+    (fredholm_tpu_torch/tools/mega_lanes.py), the same inputs with every
+    lane dead held to the twin, and both timed in turns with the full
+    variant of each --against tree that has one, as are its d = 0 and
+    d = 2 and the other three setups of phase 18 at d = 1 (their shading
+    shares printed)
 21. mega's textured variant (k_mega_tex) and the final resolve's textured
     instance vs their twins: the ptxas line, then compare_stages at each d
     of the three texture goldens' setups (texture: a base-color checker;
@@ -562,13 +563,12 @@ def time_turns(tag, calls, rounds, show=True):
     return out
 
 
-def tree_turns(tag, build, trees, fns, rounds, unheld=()):
+def tree_turns(tag, build, trees, fns, rounds):
     """{kernel: {tree: (events ms, graph ms)}}: each of fns ({kernel:
     wrapper call}) under each tree's library (`trees`: {name: library},
     THIS_TREE's first), timed by time_turns (printed with more than one
     tree). Before the turns each other tree's outputs are held equal to
-    this tree's (NaN equal to NaN), but those of the trees in `unheld`
-    (measurement copies)."""
+    this tree's (NaN equal to NaN)."""
     import torch
 
     def under(handle, fn):
@@ -587,7 +587,7 @@ def tree_turns(tag, build, trees, fns, rounds, unheld=()):
     calls = {(k, t): under(h, fn) for k, fn in fns.items() for t, h in trees.items()}
     for k in fns:
         want = planes(calls[(k, THIS_TREE)]())
-        for t in [t for t in list(trees)[1:] if t not in unheld]:
+        for t in list(trees)[1:]:
             got = planes(calls[(k, t)]())
             for x, y in zip(got, want):
                 same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
@@ -876,10 +876,6 @@ def parse_args(argv):
                    "mega's full variant at transmission_rough's d = 1 ([20]) and its "
                    "textured one at texture's d = 1 ([23]) where the tree has them, and "
                    "its B7 on [13]'s rays, after holding their outputs equal; may repeat")
-    p.add_argument("--probe", action="append", default=[], metavar="CSRC_DIR",
-                   help="also build CSRC_DIR, a measurement copy of a tree (e.g. from "
-                   "`python3 -m fredholm_tpu_torch.tools.mega_lanes`), and time its full "
-                   "mega variant in turns at [20], its outputs not held equal; may repeat")
     return p.parse_args(argv)
 
 
@@ -926,10 +922,10 @@ def main() -> None:
     t0 = time.perf_counter()
     others = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
                                 "from fredholm_tpu_torch import _build; _build.build(sys.argv[2])",
-                                ROOT, os.path.abspath(csrc)]) for csrc in args.against + args.probe]
+                                ROOT, os.path.abspath(csrc)]) for csrc in args.against]
     _build.lib()
     if any(p.wait() != 0 for p in others):
-        raise RuntimeError("[1] a tree given by --against or --probe did not build")
+        raise RuntimeError("[1] a tree given by --against did not build")
     print(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(parallel nvcc + link {_build.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
@@ -939,13 +935,6 @@ def main() -> None:
     lib_paths = {THIS_TREE: _build.build()}
     full_trees = [THIS_TREE]  # the trees with mega's full variant
     tex_trees = [THIS_TREE]  # the trees with mega's textured variant
-    probes = {}  # the measurement copies (--probe): {name: library}
-    for csrc in args.probe:
-        info = {}
-        probes[csrc] = _build.load(_build.build(os.path.abspath(csrc), info))
-        for name, regs in info.get("ptxas", {}).items():
-            if "k_mega_full" in name:
-                print(f"[1] ptxas {csrc} {name}: {regs}")
     for csrc in args.against:
         info = {}
         lib_paths[csrc] = _build.build(os.path.abspath(csrc), info)
@@ -970,7 +959,7 @@ def main() -> None:
                   f"(instructions here, there) {other}")
     # turns of each timing against the other trees: their differences are
     # a few percent, so more turns than for this tree alone
-    rounds = 6 if len(trees) + len(probes) > 1 else 2
+    rounds = 6 if len(trees) > 1 else 2
     phase_done(1, t0)
 
     results = {}
@@ -1892,6 +1881,18 @@ def main() -> None:
         }))
         if name == "spec_transmission":
             profile_busy("[20]", "spec_transmission at 512x512", r, d20, start_tracer=False)
+        if len(full_trees) > 1:
+            # the metric end to end under each tree's kernels, in turns
+            # whose order reverses each turn
+            mpv = {t: [] for t in full_trees}
+            for rnd in range(rounds):
+                for t in (full_trees if rnd % 2 == 0 else full_trees[::-1]):
+                    with _build.using(trees[t]):
+                        pv_t, s_t, _ = timed_metric(r, spp20, d20, _build)
+                    mpv[t].append(pv_t / s_t / 1e6)
+            print(f"[20] {name} end to end in turns, Mpath vertices/s: " + "; ".join(
+                f"{t} {sum(v) / rounds:.3f} ({sum(v) / sum(mpv[THIS_TREE]):.3f}x this tree's; "
+                f"turns {', '.join(f'{x:.3f}' for x in v)})" for t, v in mpv.items()))
 
     # the full variant at transmission_rough's d = 1, against its twin and
     # beside its bound: CUDA events around the wrapper, and graph replays
@@ -1935,8 +1936,7 @@ def main() -> None:
     compare_planes("all dead pending", ko[2], to[2], tag="[20]")
     fns20 = {"mega_full": full20, "mega_full all dead": lambda: full20(st_dead20)}
     turns20 = tree_turns("[20] transmission_rough d=1", _build,
-                         {**{t: trees[t] for t in full_trees}, **probes}, fns20,
-                         rounds, unheld=probes)
+                         {t: trees[t] for t in full_trees}, fns20, rounds)
     print("[20] mega_full graph ms: " + ", ".join(
         f"{t}: {turns20['mega_full'][t][1]:.5f} (all dead {turns20['mega_full all dead'][t][1]:.5f})"
         for t in turns20["mega_full"]))
@@ -1954,6 +1954,27 @@ def main() -> None:
                                                           st_d, rays_d, pend_d, tr_d)}, rounds)
         st_d, rays_d, pend_d, _ = kernels.mega(cfg20, d, sv20, usv20, r._dev, n_spp20, si, st_d,
                                                rays_d, pend_d, tr_d)
+    # d = 1 of the other three setups of [18]
+    for name in STAGE_GOLDENS:
+        if name == "transmission_rough":
+            continue
+        r1, kw1 = golden_setup(name, 512)
+        p1 = r1._params(kw1["max_depth"])
+        cfg1 = pf.make_config(r1._dev, p1)
+        n1 = r1.width * r1.height
+        sv1, usv1 = pf.pack_scalars(p1, n1, dev)
+        n_spp1 = torch.full((n1,), 3, dtype=torch.int64, device=dev)
+        tracer1 = stage_tracer(pf, cfg1, r1._dev, n1)
+        st1, si1, rays1 = kernels.raygen(cfg1, sv1, usv1, n_spp1)
+        st1, rays1, pend1, _ = kernels.mega(cfg1, 0, sv1, usv1, r1._dev, n_spp1, si1, st1,
+                                            rays1, None, tracer1(rays1, 0))
+        tr1 = tracer1(rays1, 1)
+        shading1 = int(mega_lanes.shading_lanes(cfg1, st1, tr1, n1, 1).sum())
+        print(f"[20] {name} d=1: shading {shading1} ({shading1 / n1:.4f})")
+        if len(full_trees) > 1:
+            tree_turns(f"[20] {name} d=1", _build, {t: trees[t] for t in full_trees},
+                       {"mega_full": lambda: kernels.mega(cfg1, 1, sv1, usv1, r1._dev, n_spp1,
+                                                          si1, st1, rays1, pend1, tr1)}, rounds)
     for t, info in tree_infos.items():
         if t in full_trees:
             print(f"[20] ptxas {t}: " + json.dumps(

@@ -88,20 +88,28 @@
 // warp holding a few shading lanes ran their long chain for them. The
 // lobes vary little inside a warp (at most 3 sets, 1.15 on average):
 // divergence across lobes is not the cost.
-// - The floor pass (`k_mega_full`): a lane that shades nothing runs the
-//   body with `alive` false at compile time, so the evaluations, the next
-//   bounce's sample and all that only feeds a contribution (the light
+// - The floor pass (`k_mega_full_floor`): a lane that shades nothing runs
+//   the body with `alive` false at compile time, so the evaluations, the
+//   next bounce's sample and all that only feeds a contribution (the light
 //   sample's value, the layer multipliers, the metal Fresnel) fold away:
 //   80 registers, 6 blocks an SM.
-// - The shading pass (`k_mega_full_shade`): the shading lanes, queued in
-//   lane order one atomic a warp (`k_mega_full_queue`), run the whole body
-//   32 to a warp. They are too few warps to hide one body's chain, so the
-//   pass does not follow the floor pass: it starts first and lets the
-//   floor pass launch beside it (programmatic dependent launch), and the
-//   floor pass's last block waits for it. Where an eighth of the lanes or
-//   more shade, it runs the whole body on every lane, and the floor pass
-//   none; at d = 0, where many do (38% at transmission_rough's),
-//   `k_mega_full_all` alone does that.
+// - The shading pass (`k_mega_full`, the whole body): the shading lanes,
+//   queued in lane order one atomic a warp (`k_mega_full_queue`), run the
+//   whole body 32 to a warp. They are too few warps to hide one body's
+//   chain, so the pass does not follow the floor pass: it starts first and
+//   lets the floor pass launch beside it (programmatic dependent launch),
+//   and the floor pass's last block waits for it. Where an eighth of the
+//   lanes or more shade, it runs the whole body on every lane, and the
+//   floor pass none; at d = 0, where many do (38% at transmission_rough's),
+//   it runs alone on every lane, without the queue.
+// - Two choices of the whole body on every lane, each measured against
+//   the other (PERF.md): the host takes it at d = 0, without the queue
+//   (the count's choice there costs the queue kernel and an empty floor
+//   pass, 1.09-1.10x); past it the count takes it where an eighth of the
+//   lanes or more shade (the queue there costs 1.16x at 38% shading).
+// - The queue's buffer is zeroed once and kept by the wrapper; the floor
+//   pass's last block zeroes its counters for the next launch, so a launch
+//   costs the host its three kernel launches and nothing more.
 // Measured and dropped for it (PERF.md): the two passes in turn (the
 // shading pass's chain after the floor), in one kernel taking the queue
 // first (the floor at the shading pass's registers), on two streams (no
@@ -116,7 +124,7 @@ constexpr int kBlock = 128;
 // the resident blocks an SM that ptxas fits each mega variant's registers to
 constexpr int kMegaBlocksPlain = 6;
 constexpr int kMegaBlocksRich = 5;
-constexpr int kMegaBlocksFull = 4;   // the full variant's shading pass
+constexpr int kMegaBlocksFull = 4;   // the full variant's whole body
 constexpr int kMegaBlocksFloor = 6;  // and its floor pass
 constexpr int kMegaBlocksTex = 4;
 
@@ -694,7 +702,9 @@ __device__ __forceinline__ bool many_shade(const ShadeArgs& a, int count) { retu
 
 // The full variant's queue: the lanes that shade (lane_queue[0] counts
 // them, their indices go to lane_queue[2 + slot]), one atomic a warp;
-// lane_queue[1] counts the floor pass's finished blocks
+// lane_queue[1] counts the floor pass's finished blocks. Both counters are
+// 0 when it starts: the wrapper's buffer is zeroed once, and the floor
+// pass's last block sets them back to 0.
 __global__ void __launch_bounds__(kBlock) k_mega_full_queue(const ShadeArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -708,38 +718,39 @@ __global__ void __launch_bounds__(kBlock) k_mega_full_queue(const ShadeArgs a) {
   a.lane_queue[2 + base + __popc(q & ((1u << lane) - 1u))] = i;
 }
 
-// The full variant's shading pass: the whole body on the queued lanes, 32
+// The full variant's whole body. At d = 0 it runs alone on every lane.
+// Past it, it is the shading pass: the whole body on the queued lanes, 32
 // to a warp, from the first block on (the blocks past the queue end at
-// once). Its blocks start first, and each lets the floor pass launch
-// beside it at once (griddepcontrol.launch_dependents), so its long chains
-// run beside the floor pass, not after it.
-__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full_shade(const ShadeArgs a) {
+// once), or on every lane where many shade. Its blocks start first, and
+// each lets the floor pass launch beside it at once
+// (griddepcontrol.launch_dependents), so its long chains run beside the
+// floor pass, not after it.
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full(const ShadeArgs a) {
   asm volatile("griddepcontrol.launch_dependents;");
-  const int count = a.lane_queue[0];
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  // lane k itself where many shade, else the k-th queued lane (none past
-  // the queue's end)
-  const int i = many_shade(a, count) ? k : (k < count ? a.lane_queue[2 + k] : a.n);
+  int i = k;
+  if (a.d > 0) {
+    const int count = a.lane_queue[0];
+    if (!many_shade(a, count)) i = k < count ? a.lane_queue[2 + k] : a.n;
+  }
   mega_body<true, true, false>(a, i);
 }
 
-// The full variant's floor pass: a lane that shades nothing runs the body
-// with `alive` false at compile time. The last of its blocks to finish
-// waits for the shading pass (griddepcontrol.wait), so the launch ends
-// after both.
-__global__ void __launch_bounds__(kBlock, kMegaBlocksFloor) k_mega_full(const ShadeArgs a) {
+// The full variant's floor pass, past d = 0: a lane that shades nothing
+// runs the body with `alive` false at compile time. The last of its blocks
+// to finish waits for the shading pass (griddepcontrol.wait), so the
+// launch ends after both, and then zeroes the queue's counters for the
+// next launch.
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFloor) k_mega_full_floor(const ShadeArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < a.n && !many_shade(a, a.lane_queue[0]) && !shades(a, i))
     mega_body<true, true, false, kPassFloor>(a, i);
   __syncthreads();
-  if (threadIdx.x == 0 && atomicAdd(a.lane_queue + 1, 1) == (int)gridDim.x - 1)
+  if (threadIdx.x == 0 && atomicAdd(a.lane_queue + 1, 1) == (int)gridDim.x - 1) {
     asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
-// The full variant at d = 0, where many lanes shade: the whole body on
-// every lane
-__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full_all(const ShadeArgs a) {
-  mega_body<true, true, false>(a, blockIdx.x * blockDim.x + threadIdx.x);
+    a.lane_queue[0] = 0;
+    a.lane_queue[1] = 0;
+  }
 }
 
 __global__ void __launch_bounds__(kBlock, kMegaBlocksTex) k_mega_tex(const ShadeArgs a) {
@@ -769,17 +780,15 @@ extern "C" int fh_mega(const ShadeArgs* a, cudaStream_t stream) {
   if (a->tex_mask != 0) {
     k_mega_tex<<<grid(a->n), kBlock, 0, stream>>>(*a);
   } else if (needs_full(a) && a->d == 0) {
-    k_mega_full_all<<<grid(a->n), kBlock, 0, stream>>>(*a);
+    k_mega_full<<<grid(a->n), kBlock, 0, stream>>>(*a);
   } else if (needs_full(a)) {
-    // the queue's two counters zeroed, the queue, the shading pass, then
-    // the floor pass launched beside it (programmatic stream
-    // serialization)
+    // the queue, the shading pass, then the floor pass launched beside it
+    // (programmatic stream serialization)
     if (a->lane_queue == nullptr) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaMemsetAsync(a->lane_queue, 0, 2 * sizeof(int), stream);
-    if (e != cudaSuccess) return (int)e;
     k_mega_full_queue<<<grid(a->n), kBlock, 0, stream>>>(*a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    k_mega_full_shade<<<grid(a->n), kBlock, 0, stream>>>(*a);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_mega_full<<<grid(a->n), kBlock, 0, stream>>>(*a);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     cudaLaunchAttribute beside[1];
     beside[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -790,7 +799,7 @@ extern "C" int fh_mega(const ShadeArgs* a, cudaStream_t stream) {
     cfg.stream = stream;
     cfg.attrs = beside;
     cfg.numAttrs = 1;
-    if ((e = cudaLaunchKernelEx(&cfg, k_mega_full, *a)) != cudaSuccess) return (int)e;
+    if ((e = cudaLaunchKernelEx(&cfg, k_mega_full_floor, *a)) != cudaSuccess) return (int)e;
   } else if (needs_rich(a)) {
     k_mega<true><<<grid(a->n), kBlock, 0, stream>>>(*a);
   } else {

@@ -202,6 +202,22 @@ def raygen(cfg: pf.FusedConfig, sv, usv, n_spp):
     return state, sample_idx, rays
 
 
+# {device: int32 [2 + N]}: the scratch of mega's full variant on a device
+_LANE_QUEUES: Dict[torch.device, torch.Tensor] = {}
+
+
+def lane_queue(n: int, dev) -> torch.Tensor:
+    """The full variant's scratch on `dev` for n lanes (csrc/shade.cu
+    `k_mega_full_queue`): zeroed when made, kept for every later launch on
+    the device, since its kernels leave its two counters at 0; made anew,
+    zeroed, only for more lanes than it holds."""
+    dev = torch.device(dev)
+    q = _LANE_QUEUES.get(dev)
+    if q is None or q.numel() < 2 + n:
+        q = _LANE_QUEUES[dev] = torch.zeros((2 + n,), dtype=torch.int32, device=dev)
+    return q
+
+
 def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
          sample_idx, state, rays, pending, tr: pf.Traced):
     """Resolve bounce d-1, shade bounce d, emit bounce d's rays and RR.
@@ -232,11 +248,8 @@ def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     aov = (torch.empty((pf.AOV_ROWS, n), dtype=torch.float32, device=dev)
            if d == 0 else None)
     variant = mega_variant(cfg)
-    # the full variant's scratch: the queue of its shading lanes
-    # (csrc/shade.cu)
-    queue = torch.empty((2 + n,), dtype=torch.int32, device=dev) if variant == "full" else None
-    if queue is not None:
-        ptrs["lane_queue"] = queue.data_ptr()
+    if variant == "full":
+        ptrs["lane_queue"] = lane_queue(n, dev).data_ptr()
     a = _args(cfg, sv, usv, n_spp, state_out=state_out.data_ptr(),
               rays_out=rays_out.data_ptr(), pending_out=pending_out.data_ptr(),
               aov_out=aov.data_ptr() if aov is not None else None, **ptrs)

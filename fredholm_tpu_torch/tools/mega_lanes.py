@@ -1,4 +1,4 @@
-"""Lane counts of mega's full variant, and measurement copies of its sources.
+"""Lane counts of mega's full variant.
 
 What `chip_smoke.py` [20] prints about `k_mega_full` (csrc/shade.cu) at
 transmission_rough's d = 1, computed with the stage twins' own code from
@@ -13,21 +13,10 @@ the inputs the kernel gets:
 - `warp_lobe_stats`: over warps of 32 lanes in lane order, how many
   distinct `eval_lobes` sets a warp's shading lanes have, and how many
   lobes their union holds: the branches `bsdf_eval` runs for that warp.
-- `write_probes`: copies of a csrc tree whose full variant does part of
-  its work, timed beside the tree (`chip_smoke.py --probe DIR`): its
-  BSDF evaluations return zero (`zero_eval`); it only loads its inputs
-  and stores its outputs, at the blocks an SM the card gives it
-  (`io_only`) or held to 4, the full variant's (`io_only_b4`). Their
-  outputs are not the kernel's: they are timed, never held equal.
-
-    python3 -m fredholm_tpu_torch.tools.mega_lanes SRC_CSRC DST_DIR
 """
 
 from __future__ import annotations
 
-import os
-import shutil
-import sys
 from typing import Dict
 
 import torch
@@ -106,98 +95,3 @@ def warp_lobe_stats(bits: torch.Tensor, shading: torch.Tensor, warp: int = 32) -
         "union_lobes_max": int(union.max()),
         "sets": {int(v): int((b[s] == v).sum()) for v in torch.unique(b[s]).tolist()},
     }
-
-
-# ---------------------------------------------------------------------------
-# measurement copies
-
-_BSDF_EVAL_FULL = ("__device__ __forceinline__ void bsdf_eval(const BsdfFull& b, V3 wo, V3 wi, "
-                   "V3& f, float& pdf) {\n")
-
-_K_MEGA_FULL = ("__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) "
-                "k_mega_full(const ShadeArgs a) {\n  mega_body<true, true, false>(a);\n}\n")
-
-# the full variant's loads and stores alone: every state, pending and ray
-# row it reads, the occlusions, hits, geometry and material columns of its
-# radiance and light blocks; every row it writes, with their sum. kPad
-# floats of shared memory hold the blocks an SM down (46 KB: 4).
-_IO_BODY = """template <int kPad>
-__device__ __forceinline__ void mega_io(const ShadeArgs& a) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const long long n = a.n;
-  const Blocks k = blocks_of(a);
-  float acc = (float)a.sample_idx[i] + (float)a.n_spp[i];
-  for (int r = 0; r < 14; ++r) acc += a.state_in[r * n + i];
-  if (a.d > 0) {
-    for (int r = 0; r < 14; ++r) acc += a.pending_in[r * n + i];
-    for (int b = 0; b <= k.light; ++b) acc += occluded(a, b, i) ? 1.0f : 0.0f;
-    const long long li = k.light * n + i;
-    for (int r = 0; r < 6; ++r) acc += a.rays_in[r * a.rays_in_stride + li];
-    if (a.n_lights > 0) {
-      const long long j = (k.light - a.hit_block0) * n + i;
-      Geom g;
-      const float* m;
-      attrs(a, j, g, m);
-      acc += a.hit_u[j] + a.hit_v[j] + m[M_HAS_EMISSION];
-      for (int c = 0; c < C_MAT_ID; ++c) acc += g[c];
-    }
-  }
-  const long long ri = (a.d == 0 ? 0 : k.rad - a.hit_block0) * n + i;
-  Geom g;
-  const float* m;
-  attrs(a, ri, g, m);
-  acc += a.hit_u[ri] + a.hit_v[ri] + (a.d == 0 ? a.hit_t[ri] : 0.0f);
-  for (int c = 0; c < C_MAT_ID; ++c) acc += g[c];
-  for (int c = 0; c < M_TX0; ++c) acc += m[c];
-  if (kPad > 0 && a.n < 0) {  // never: keeps the shared memory allocated
-    __shared__ float pad[kPad > 0 ? kPad : 1];
-    pad[threadIdx.x] = acc;
-    acc += pad[(threadIdx.x + 1) % kBlock];
-  }
-  for (int r = 0; r < 14; ++r) a.state_out[r * n + i] = acc;
-  for (int r = 0; r < 14; ++r) a.pending_out[r * n + i] = acc;
-  for (int b = 0; b < k.count; ++b) store_ray(a, k.count, b, i, v3(acc, acc, acc), v3(acc, acc, acc), acc);
-  if (a.d == 0)
-    for (int r = 0; r < 12; ++r) a.aov_out[r * n + i] = acc;
-}
-
-"""
-
-PROBES = ("zero_eval", "io_only", "io_only_b4")
-
-
-def _edit(path: str, old: str, new: str) -> None:
-    with open(path) as f:
-        src = f.read()
-    if src.count(old) != 1:
-        raise ValueError(f"{path}: expected one `{old.splitlines()[0]}`")
-    with open(path, "w") as f:
-        f.write(src.replace(old, new))
-
-
-def write_probes(src: str, dst: str) -> Dict[str, str]:
-    """The copies of csrc tree `src` (a tree whose full variant runs
-    `mega_body` on every lane, as before the two passes) under dst:
-    {name: csrc dir}. Raises when `src` lacks a function they edit."""
-    out = {}
-    for name in PROBES:
-        d = os.path.join(dst, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(src, d)
-        if name == "zero_eval":
-            _edit(os.path.join(d, "common.cuh"), _BSDF_EVAL_FULL,
-                  _BSDF_EVAL_FULL + "  f = zero3();\n  pdf = 0.0f;\n  return;\n")
-        else:
-            pad = 11776 if name == "io_only_b4" else 0
-            _edit(os.path.join(d, "shade.cu"), _K_MEGA_FULL, _IO_BODY + _K_MEGA_FULL.replace(
-                "mega_body<true, true, false>(a);", f"mega_io<{pad}>(a);"))
-        out[name] = d
-    return out
-
-
-if __name__ == "__main__":
-    if len(sys.argv) != 3:
-        raise SystemExit(__doc__)
-    for name, d in write_probes(sys.argv[1], sys.argv[2]).items():
-        print(f"{name}: {d}")

@@ -10,10 +10,9 @@ Cornell box whose white faces and a sphere inside turn every lobe on.
   outside evaluates all seven lobes, from inside the two that do not need
   `entering`;
 - `warp_lobe_stats` counts warps, distinct sets and unions by hand;
-- `write_probes` edits a tree in the two places it names, or raises.
+- `kernels.lane_queue`, the full variant's scratch, is zeroed once and
+  kept.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -123,19 +122,18 @@ def test_warp_lobe_stats_by_hand():
     assert s["sets"] == {ALL_BITS: 2, INSIDE_BITS: 1, 64: 1}
 
 
-def test_write_probes_edits_the_named_functions(tmp_path):
-    src = tmp_path / "csrc"
-    src.mkdir()
-    (src / "common.cuh").write_text("// head\n" + mega_lanes._BSDF_EVAL_FULL + "  body;\n}\n")
-    (src / "shade.cu").write_text("namespace {\n" + mega_lanes._K_MEGA_FULL + "}\n")
-    out = mega_lanes.write_probes(str(src), str(tmp_path / "probes"))
-    assert sorted(out) == sorted(mega_lanes.PROBES)
-    zero = open(os.path.join(out["zero_eval"], "common.cuh")).read()
-    assert "f = zero3();\n  pdf = 0.0f;\n  return;\n  body;" in zero
-    for name, pad in (("io_only", 0), ("io_only_b4", 11776)):
-        shade = open(os.path.join(out[name], "shade.cu")).read()
-        assert f"mega_io<{pad}>(a);" in shade and "mega_body" not in shade
-        assert shade.index("void mega_io") < shade.index("k_mega_full")
-    (src / "shade.cu").write_text("// a tree with the two passes\n")
-    with pytest.raises(ValueError, match="expected one"):
-        mega_lanes.write_probes(str(src), str(tmp_path / "again"))
+def test_lane_queue_is_zeroed_once_and_kept():
+    # the full variant's scratch: made zeroed, the same buffer for as many
+    # lanes or fewer (its kernels leave its counters at 0), made anew and
+    # zeroed for more
+    kernels._LANE_QUEUES.clear()
+    q = kernels.lane_queue(100, "cpu")
+    assert q.dtype == torch.int32 and q.shape == (102,) and not bool(q.any())
+    q[:2] = 0
+    q[2:] = 7
+    assert kernels.lane_queue(100, "cpu") is q and kernels.lane_queue(40, "cpu") is q
+    assert bool((q[2:] == 7).all())
+    big = kernels.lane_queue(300, "cpu")
+    assert big is not q and big.shape == (302,) and not bool(big.any())
+    assert kernels.lane_queue(100, torch.device("cpu")) is big
+    kernels._LANE_QUEUES.clear()
