@@ -5,12 +5,12 @@ Run from the repository root:  python3 chip_smoke.py
 (`--against CSRC_DIR`, which may repeat, also times other trees' B1 and
 mega kernels in turns with this tree's: phases 1, 5 and 9, in phase 20
 mega's full variant and in phase 23 its textured one, of the trees that
-have them, and in phase 13 their B7; phase 1 says which kernels each
-tree compiles to the same machine code as this one, and phase 18 holds
-each tree's full variant to its twins beside this tree's. A tree's
-kernels take this tree's launch-argument struct, csrc/common.cuh
-`ShadeArgs`: an older tree's copy needs its struct brought level first,
-or shares its fields in order and ends sooner)
+have them, in phase 13 their B7 and in phase 12 their B3; phase 1 says
+which kernels each tree compiles to the same machine code as this one,
+and phase 18 holds each tree's full variant to its twins beside this
+tree's. A tree's kernels take this tree's launch-argument struct,
+csrc/common.cuh `ShadeArgs`: an older tree's copy needs its struct
+brought level first, or shares its fields in order and ends sooner)
 
 Phases, each printing before the next; any failure raises and the script
 exits non-zero without the final `ok` line:
@@ -59,14 +59,23 @@ exits non-zero without the final `ok` line:
    dead; one live lane a block), beside the PR-4 design's times
 10. the dense any-hit kernel (B3) vs its twin, bit-equal masks: the
     1024-triangle soup of [2] (2^20 rays, dead lanes included) and the
-    concatenated NEE rays of a real wavefront bounce of metric 1's scene
+    concatenated NEE rays of each bounce d = 0..4 of one render(1) of the
+    wavefront metric (below)
 11. the wavefront integrator's goldens through Renderer(device="cuda"):
     cornell with use_fused = False (dense, B1 + B3) and thin_film at its
     committed setup (clustered, B4/B5/B6)
 12. the wavefront metric: metric 1's scene and camera at 512x512, 16 x
     render(1) after 2 warm-up spp, depth 5, sampler_mode "bluenoise",
     with its launch counts (B1 160, B3 80, twins 0), the profiler's busy
-    share and top kernels, and B3's time vs its twin beside its bound
+    share and top kernels, and B3's time vs its twin beside its bound;
+    then B3 at each bounce d = 0..4 on [10]'s buffers: the live share, the
+    sky and area blocks' occluded shares and tests per live lane, a
+    warp's largest test count (mean over warps) and the lane slots a test
+    of three schedules (fredholm_tpu_torch/tools/any_lanes.py), both
+    bound terms counted in the kernel's order, and B3 timed (CUDA events
+    and CUDA-graph replays) on the triangles in index order and largest
+    first, in turns with the B3 of each --against tree; with such trees
+    also the metric end to end under each tree's kernels, in turns
 13. the ray-resident traversal (B7, FREDHOLM_TRAV_RESIDENT=1) at metric
     2's bounce shapes (fredholm_tpu_torch/tools/resident_steps.py): a
     gate-on sweep's d = 1 rays (the closest block, 147,456 rays, and the
@@ -733,9 +742,9 @@ def host_ms(fn):
     return (time.perf_counter() - w0) * 1e3, res
 
 
-def first_nee_rays(r, wavefront):
-    """The [7, M] ray buffer of the first any-hit trace of one render(1)
-    at depth 1 through the wavefront integrator: a real bounce's
+def nee_rays(r, wavefront, depth):
+    """The [7, M] ray buffers of the any-hit traces of one render(1) at
+    `depth` through the wavefront integrator, one a bounce: each bounce's
     concatenated NEE blocks. The render's samples are cleared after."""
     seen = []
     trace_any = wavefront.trace_any
@@ -746,11 +755,11 @@ def first_nee_rays(r, wavefront):
 
     wavefront.trace_any = spy
     try:
-        r.render(n_samples=1, max_depth=1)
+        r.render(n_samples=1, max_depth=depth)
     finally:
         wavefront.trace_any = trace_any
     r.init_render_states()
-    return seen[0]
+    return seen
 
 
 # The goldens of tools/gen_goldens.py that phases 18-20 render: the six
@@ -874,8 +883,9 @@ def parse_args(argv):
                    "time its B1 and mega in turns with this tree's, on the same inputs, "
                    "at each bounce of metric 1 ([5]) and at metric 2's d = 1 ([9]), "
                    "mega's full variant at transmission_rough's d = 1 ([20]) and its "
-                   "textured one at texture's d = 1 ([23]) where the tree has them, and "
-                   "its B7 on [13]'s rays, after holding their outputs equal; may repeat")
+                   "textured one at texture's d = 1 ([23]) where the tree has them, "
+                   "its B7 on [13]'s rays and its B3 at each bounce of the wavefront "
+                   "metric ([12]), after holding their outputs equal; may repeat")
     return p.parse_args(argv)
 
 
@@ -904,7 +914,7 @@ def main() -> None:
         sphere_array_test,
         terrain,
     )
-    from fredholm_tpu_torch.tools import mega_lanes
+    from fredholm_tpu_torch.tools import any_lanes, mega_lanes
     from fredholm_tpu_torch.tools import probe_bf16 as probe
     from fredholm_tpu_torch.tools import resident_steps as res_steps
 
@@ -941,7 +951,7 @@ def main() -> None:
         trees[csrc] = _build.load(lib_paths[csrc])
         tree_infos[csrc] = info
         for name, regs in info.get("ptxas", {}).items():
-            if "dense_closest" in name or "k_mega" in name or "k_resident" in name:
+            if "dense" in name or "k_mega" in name or "k_resident" in name:
                 print(f"[1] ptxas {csrc} {name}: {regs}")
         if any("k_mega_full" in name for name in info.get("ptxas", {})):
             full_trees.append(csrc)
@@ -1458,9 +1468,13 @@ def main() -> None:
     if rw._params(5)["use_fused"]:
         raise AssertionError("bluenoise sampling did not route to the wavefront integrator")
     tri_w = rw._dev["tri_soa"]
-    nee = first_nee_rays(rw, wavefront)
-    results["dense_any"] = max(check_any("soup 1024 tris", s_tri, s_rays),
-                               check_any("wavefront NEE, metric-1 bounce", tri_w, nee))
+    # one buffer a bounce of the wavefront metric (B3 launches depth x spp)
+    nees = nee_rays(rw, wavefront, 5)
+    if len(nees) != 5:
+        raise AssertionError(f"the wavefront metric traced {len(nees)} NEE buffers, not 5")
+    nee = nees[0]
+    results["dense_any"] = max([check_any("soup 1024 tris", s_tri, s_rays)] + [
+        check_any(f"wavefront NEE, metric-1 bounce d={d}", tri_w, b) for d, b in enumerate(nees)])
     phase_done(10, t0)
 
     # ---- 11: goldens of the wavefront integrator through the user entry point
@@ -1538,6 +1552,60 @@ def main() -> None:
                                   st3["tri"] * TRI_OPS)}
     print(f"[12] dense_any: {nee.shape[1]} rays, {live3} live, {st3['tri']} triangle tests, "
           f"bound {bounds3['dense_any'][0]:.4f} ms ({bounds3['dense_any'][1]})")
+
+    # B3 at each bounce of the wavefront metric, on the buffers [10] held
+    # bit-equal: the lanes' tests (the twin's, in the kernel's index order)
+    # and the lane slots of three schedules (tools/any_lanes.py), the bound,
+    # and the kernel in turns with the trees given by --against, on the
+    # triangles in index order and largest first (the masks do not change)
+    tri_area = any_lanes.by_area(tri_w)
+    per_d3 = []
+    for d, b in enumerate(nees):
+        m = b.shape[1]
+        _, sd = any_lanes.bounce_stats(tri_w, b, ("sky", "area"))
+        _, sa = any_lanes.bounce_stats(tri_area, b, ("sky", "area"))
+        live = int((b[6] > 0).sum())
+        byt = 4 * m + 24 * live + m
+        bnd = {"bytes_ms": byt / PEAK_BYTES_PER_S * 1e3,
+               "ops_ms": sd["tests"] * TRI_OPS / PEAK_FP32_PER_S * 1e3,
+               "ops_unfused_ms": sd["tests"] * TRI_OPS / (PEAK_FP32_PER_S / 2) * 1e3,
+               "area_order_ops_unfused_ms":
+                   sa["tests"] * TRI_OPS / (PEAK_FP32_PER_S / 2) * 1e3}
+        tt = tree_turns(f"[12] d={d}", _build, trees, {
+            "B3": lambda b=b, m=m: dense.intersect_any(tri_w, b, m),
+            "B3 area order": lambda b=b, m=m: dense.intersect_any(tri_area, b, m)}, rounds)
+        blk = sd["blocks"]
+        print(f"[12] B3 d={d}: {m} rays, live {sd['live']:.4f}; occluded sky "
+              f"{blk['sky']['occluded']:.4f}, area {blk['area']['occluded']:.4f}; tests per "
+              f"live lane {sd['tests_per_live']:.3f} (sky {blk['sky']['tests_per_live']:.3f}, "
+              f"area {blk['area']['tests_per_live']:.3f}; largest first "
+              f"{sa['tests_per_live']:.3f}); a warp's largest count, mean over warps "
+              f"{json.dumps({k: round(v, 3) for k, v in sd['warp_max_mean'].items()})}; "
+              "lane slots a test "
+              f"{json.dumps({k: round(v, 3) for k, v in sd['slots_per_test'].items()})}")
+        print(f"[12] B3 d={d}: events {tt['B3'][THIS_TREE][0]:.5f} ms, graph "
+              f"{tt['B3'][THIS_TREE][1]:.5f} ms (largest first: graph "
+              f"{tt['B3 area order'][THIS_TREE][1]:.5f}); bound bytes {bnd['bytes_ms']:.5f} ms, "
+              f"operations {bnd['ops_ms']:.5f} ms at 67 TFLOP/s, {bnd['ops_unfused_ms']:.5f} "
+              f"unfused (largest first {bnd['area_order_ops_unfused_ms']:.5f})")
+        row = {"d": d, **sd, "largest_first": {k: sa[k] for k in ("tests", "tests_per_live")},
+               "bound": bnd,
+               "ms": {k: {t: {"events_ms": e, "graph_ms": g} for t, (e, g) in v.items()}
+                      for k, v in tt.items()}}
+        per_d3.append(row)
+    print(json.dumps({"wavefront B3 per bounce": per_d3, "card": card}))
+    if len(trees) > 1:
+        # the metric end to end under each tree's kernels, 4 spp a turn, in
+        # turns whose order reverses each turn
+        mpv = {t: [] for t in trees}
+        for rnd in range(rounds):
+            for t in (list(trees) if rnd % 2 == 0 else list(trees)[::-1]):
+                with _build.using(trees[t]):
+                    pv_t, s_t, _ = timed_metric(rw, 4, depth, _build)
+                mpv[t].append(pv_t / s_t / 1e6)
+        print("[12] the wavefront metric end to end in turns, Mpath vertices/s: " + "; ".join(
+            f"{t} {sum(v) / rounds:.4f} ({sum(v) / sum(mpv[THIS_TREE]):.3f}x this tree's; "
+            f"turns {', '.join(f'{x:.4f}' for x in v)})" for t, v in mpv.items()))
     phase_done(12, t0)
 
     # ---- 13: the ray-resident traversal (B7) at metric 2's bounce shapes:

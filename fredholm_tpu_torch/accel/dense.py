@@ -92,7 +92,8 @@ def intersect_any_twin(tri: torch.Tensor, rays: torch.Tensor, m: int,
     """Plain PyTorch any hit: occluded bool [m]; same contract as the
     kernel. stats (a dict with a "tri" counter), when given, receives the
     triangle tests the kernel takes for these rays: every live lane tests
-    triangles in order up to and including its first occluder."""
+    triangles in index order up to and including its first occluder; and
+    under "lanes" each lane's count, int64 [m] (0 on a dead lane)."""
     _build.LAUNCHES["dense_any_twin"] += 1
     tmax = rays[6, :m]
     occ = torch.zeros(m, dtype=torch.bool, device=rays.device)
@@ -103,7 +104,8 @@ def intersect_any_twin(tri: torch.Tensor, rays: torch.Tensor, m: int,
         tests += torch.where(occ, 0, torch.where(hit.any(dim=1), first + 1, hit.shape[1]))
         occ |= hit.any(dim=1)
     if stats is not None:
-        stats["tri"] += int(tests[tmax > 0.0].sum())
+        stats["lanes"] = torch.where(tmax > 0.0, tests, 0)
+        stats["tri"] += int(stats["lanes"].sum())
     return occ
 
 

@@ -318,28 +318,9 @@ __device__ __forceinline__ float root_exit_clamp(const float* __restrict__ rb, c
   return (rtn <= rtf) && (rtf >= 0.0f) ? rtf * 1.0001f + 1e-4f : 0.0f;
 }
 
-// The dense kernels (dense_closest.cu, dense_any.cu) stage the [9, F]
-// triangle SoA (rows v0xyz, e1xyz, e2xyz) into shared memory, row r at
-// r * kDenseMaxTris: 36 KB at the 1024-face limit. Every thread of the
-// block must call it (it ends in a barrier).
+// The dense kernels (dense_closest.cu, dense_any.cu) stage F <= kDenseMaxTris
+// triangles in shared memory; larger scenes trace clustered.
 constexpr int kDenseMaxTris = 1024;
-__device__ __forceinline__ void stage_tri_soa(float* s_tri, const float* __restrict__ tri, int f) {
-  for (int k = threadIdx.x; k < 9 * f; k += blockDim.x) {
-    int r = k / f;
-    int c = k - r * f;
-    s_tri[r * kDenseMaxTris + c] = tri[k];
-  }
-  __syncthreads();
-}
-
-// Moller-Trumbore of a ray against staged triangle s
-__device__ __forceinline__ MtHit mt_staged(const float* s_tri, int s, float ox, float oy, float oz,
-                                           float dx, float dy, float dz) {
-  const int m = kDenseMaxTris;
-  return moller_trumbore(ox, oy, oz, dx, dy, dz, s_tri[s], s_tri[m + s], s_tri[2 * m + s],
-                         s_tri[3 * m + s], s_tri[4 * m + s], s_tri[5 * m + s], s_tri[6 * m + s],
-                         s_tri[7 * m + s], s_tri[8 * m + s]);
-}
 
 // ---------------------------------------------------------------------------
 // integer hashing (core/rng.py, shared.h:282-319, sobol.cu, cmj.cu)

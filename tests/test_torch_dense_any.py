@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 from fredholm_tpu.accel.pallas_dense import intersect_any_pallas_c, prepare_tri_soa
 from fredholm_tpu_torch import _build
 from fredholm_tpu_torch.accel import dense
+from fredholm_tpu_torch.tools import any_lanes
 from test_torch_dense import _soup
 
 # one intra-op thread: the suite runs its files in parallel processes, and
@@ -108,6 +109,63 @@ def test_stats_count_tests_to_the_first_occluder():
     stats = {"tri": 0}
     dense.intersect_any_twin(torch.as_tensor(tri9), torch.as_tensor(rays), 512, stats)
     assert 0 < stats["tri"] == want < f * int((rays[6] > 0).sum())
+    np.testing.assert_array_equal(stats["lanes"].numpy(), np.where(rays[6] > 0, per_lane, 0))
+
+
+def test_largest_first_keeps_the_mask_and_counts_its_own_order():
+    """The sweep in any_lanes.by_area's order (largest triangle first)
+    gives the index order's mask and the reference's, and the twin's stats
+    count the tests a lane takes in that order."""
+    tri9, rays = _soup(96, 512, 12)
+    by_area = any_lanes.by_area(torch.as_tensor(tri9))
+    # the columns, moved: each kernel-order column is some index's
+    where = {tuple(c): k for k, c in enumerate(tri9.T)}
+    order = np.asarray([where[tuple(c)] for c in by_area.numpy().T])
+    assert sorted(order) == list(range(tri9.shape[1]))
+    area = np.linalg.norm(np.cross(tri9[3:6].T.astype(np.float64), tri9[6:9].T), axis=1)
+    assert (np.diff(area[order]) <= 1e-6 * area.max()).all()
+    stats = {"tri": 0}
+    got = dense.intersect_any_twin(by_area, torch.as_tensor(rays), 512, stats)
+    np.testing.assert_array_equal(
+        got.numpy(), dense.intersect_any_twin(torch.as_tensor(tri9), torch.as_tensor(rays), 512))
+    t, _, _, valid = _all_pairs(tri9, rays)
+    hit = (valid & (t < rays[6][:, None]))[:, order]
+    per_lane = np.where(hit.any(axis=1), np.argmax(hit, axis=1) + 1, tri9.shape[1])
+    np.testing.assert_array_equal(stats["lanes"].numpy(), np.where(rays[6] > 0, per_lane, 0))
+    # the reference on the moved triangles, lanes near an edge excused as above
+    assert _check(by_area.numpy(), rays) < 0.25 * rays.shape[1]
+
+
+def _replay_slots(tests, block, first, pack_above, packed):
+    """k_dense_any's schedule one block and one warp at a time."""
+    t = [int(x) for x in tests]
+    if not packed:
+        tops = [max(t[i:i + 32]) for i in range(0, len(t), 32)]
+        return 32 * sum(tops), sum(1 for x in tops if x > 0)
+    slots = warps = 0
+    for b in range(0, len(t), block):
+        lanes = [i for i in range(b, min(b + block, len(t))) if t[i] > 0]
+        runs = [(lanes, lambda x: x)]
+        if first is not None and len(lanes) > pack_above:
+            runs = [(lanes, lambda x: min(x, first)),
+                    ([i for i in lanes if t[i] > first], lambda x: x - first)]
+        for group, run in runs:
+            for w in range(0, len(group), 32):
+                slots += 32 * max(run(t[i]) for i in group[w:w + 32])
+                warps += 1
+    return slots, warps
+
+
+def test_warp_slots_match_a_replay_of_each_schedule():
+    rng = np.random.default_rng(13)
+    for _ in range(6):
+        m = int(rng.integers(1, 2000))
+        tests = rng.integers(1, 37, m) * (rng.random(m) < rng.random())
+        for packed, first, pack_above in ((False, None, 0), (True, None, 0), (True, 3, 0),
+                                          (True, any_lanes.FIRST, any_lanes.PACK_ABOVE)):
+            assert any_lanes.warp_slots(torch.as_tensor(tests), 256, first, pack_above,
+                                        packed) == _replay_slots(tests, 256, first,
+                                                                 pack_above, packed)
 
 
 def test_wrapper_counts_twin_and_checks_inputs():
