@@ -138,10 +138,13 @@ exits non-zero without the final `ok` line:
     launches the textured variant at every bounce and no twin
 23. the texture metrics: the three setups at 512x512 and their depth, 8 x
     render(1) after 2 warm-up spp, with launch counts and for texture the
-    profiler's busy share and top kernels; then the textured variant at
-    texture's d = 1 vs its twin (CUDA events and a graph replay) beside
-    both terms of its bound, and in turns with the textured variant of
-    each --against tree that has one
+    profiler's busy share and top kernels, each also end to end in turns
+    under the kernels of each --against tree with a textured variant; then
+    the textured variant at texture's d = 1 vs its twin (CUDA events and a
+    graph replay) beside both terms of its bound; at texture's d = 0, 1
+    and 2 and normalmap's and emission_texture's d = 1 the shading lanes
+    and the warps of 32 holding one, and the variant's graph ms in turns
+    with the textured variant of each --against tree that has one
 """
 
 from __future__ import annotations
@@ -649,6 +652,22 @@ def timed_metric(r, spp, depth, build):
     return pv, seconds, launches
 
 
+def metric_turns(tag, name, r, spp, depth, build, trees, rounds):
+    """A metric end to end under each tree's kernels (`trees`: {name:
+    library}, THIS_TREE's first), timed_metric in turns whose order
+    reverses each turn; prints Mpath vertices/s a tree."""
+    order = list(trees)
+    mpv = {t: [] for t in order}
+    for rnd in range(rounds):
+        for t in (order if rnd % 2 == 0 else order[::-1]):
+            with build.using(trees[t]):
+                pv_t, s_t, _ = timed_metric(r, spp, depth, build)
+            mpv[t].append(pv_t / s_t / 1e6)
+    print(f"{tag} {name} end to end in turns, Mpath vertices/s: " + "; ".join(
+        f"{t} {sum(v) / rounds:.3f} ({sum(v) / sum(mpv[THIS_TREE]):.3f}x this tree's; "
+        f"turns {', '.join(f'{x:.3f}' for x in v)})" for t, v in mpv.items()))
+
+
 def time_pairs(tag, pairs, reps):
     """{name: (kernel ms, twin ms)} in turns twin, kernel, kernel, twin. A
     twin timed one call a turn (seconds a call) is not warmed up first: the
@@ -883,7 +902,8 @@ def parse_args(argv):
                    "time its B1 and mega in turns with this tree's, on the same inputs, "
                    "at each bounce of metric 1 ([5]) and at metric 2's d = 1 ([9]), "
                    "mega's full variant at transmission_rough's d = 1 ([20]) and its "
-                   "textured one at texture's d = 1 ([23]) where the tree has them, "
+                   "textured one at texture's d = 0-2 and two other setups' d = 1 ([23]) "
+                   "where the tree has them, "
                    "its B7 on [13]'s rays and its B3 at each bounce of the wavefront "
                    "metric ([12]), after holding their outputs equal; may repeat")
     return p.parse_args(argv)
@@ -1950,17 +1970,8 @@ def main() -> None:
         if name == "spec_transmission":
             profile_busy("[20]", "spec_transmission at 512x512", r, d20, start_tracer=False)
         if len(full_trees) > 1:
-            # the metric end to end under each tree's kernels, in turns
-            # whose order reverses each turn
-            mpv = {t: [] for t in full_trees}
-            for rnd in range(rounds):
-                for t in (full_trees if rnd % 2 == 0 else full_trees[::-1]):
-                    with _build.using(trees[t]):
-                        pv_t, s_t, _ = timed_metric(r, spp20, d20, _build)
-                    mpv[t].append(pv_t / s_t / 1e6)
-            print(f"[20] {name} end to end in turns, Mpath vertices/s: " + "; ".join(
-                f"{t} {sum(v) / rounds:.3f} ({sum(v) / sum(mpv[THIS_TREE]):.3f}x this tree's; "
-                f"turns {', '.join(f'{x:.3f}' for x in v)})" for t, v in mpv.items()))
+            metric_turns("[20]", name, r, spp20, d20, _build,
+                         {t: trees[t] for t in full_trees}, rounds)
 
     # the full variant at transmission_rough's d = 1, against its twin and
     # beside its bound: CUDA events around the wrapper, and graph replays
@@ -2135,6 +2146,9 @@ def main() -> None:
         }))
         if name == "texture":
             profile_busy("[23]", "texture at 512x512", r, d23, start_tracer=False)
+        if len(tex_trees) > 1:
+            metric_turns("[23]", name, r, spp23, d23, _build,
+                         {t: trees[t] for t in tex_trees}, rounds)
 
     # the textured variant at texture's d = 1, against its twin and beside
     # its bound: CUDA events around the wrapper, and graph replays
@@ -2156,9 +2170,46 @@ def main() -> None:
     times23 = time_pairs("[23]", {"mega_tex": (tex23, lambda: pf.mega_twin(
         cfg23, 1, sv23, usv23, r._dev, n_spp23, si, st, rays, pend, tr23))}, {})
     graph23 = graph_ms(tex23)
-    if len(tex_trees) > 1:
-        tree_turns("[23] texture d=1", _build, {t: trees[t] for t in tex_trees},
-                   {"mega_tex": tex23}, rounds)
+    # the textured variant bounce by bounce: the shading lanes (alive, and
+    # their ray hit) and the warps of 32 holding one, which past d = 0 are
+    # the shading pass's work, then its graph ms under this tree and each
+    # --against tree in turns, their outputs held equal first
+    for name, depths in (("texture", (0, 1, 2)), ("normalmap", (1,)),
+                         ("emission_texture", (1,))):
+        r_b, kw_b = golden_setup(name, 512)
+        p_b = r_b._params(kw_b["max_depth"])
+        cfg_b = pf.make_config(r_b._dev, p_b)
+        n_b = r_b.width * r_b.height
+        sv_b, usv_b = pf.pack_scalars(p_b, n_b, dev)
+        n_spp_b = torch.full((n_b,), 3, dtype=torch.int64, device=dev)
+        tracer_b = stage_tracer(pf, cfg_b, r_b._dev, n_b)
+        st_b, si_b, rays_b = kernels.raygen(cfg_b, sv_b, usv_b, n_spp_b)
+        pend_b = None
+        for d in range(max(depths) + 1):
+            tr_b = tracer_b(rays_b, d)
+
+            def tex_b(d=d, st_b=st_b, rays_b=rays_b, pend_b=pend_b, tr_b=tr_b):
+                return kernels.mega(cfg_b, d, sv_b, usv_b, r_b._dev, n_spp_b, si_b, st_b,
+                                    rays_b, pend_b, tr_b)
+
+            if d in depths:
+                shading = mega_lanes.shading_lanes(cfg_b, st_b, tr_b, n_b, d)
+                warps = mega_lanes.warp_lobe_stats(torch.zeros_like(shading, dtype=torch.int64),
+                                                   shading)
+                key = f"{name} d={d}"
+                turns_b = tree_turns(f"[23] {key}", _build, {t: trees[t] for t in tex_trees},
+                                     {"mega_tex": tex_b}, rounds)["mega_tex"]
+                print(f"[23] {key}: {n_b} lanes, alive {int((st_b[pf.ST_ALIVE] != 0).sum())}, "
+                      f"shading {warps['shading_lanes']} ({warps['shading_lanes'] / n_b:.4f}) in "
+                      f"{warps['warps_shading']} of {warps['warps']} warps "
+                      f"({warps['lanes_per_warp_mean']:.2f} each); graph ms " + ", ".join(
+                          f"{t} {g:.5f} ({g / turns_b[THIS_TREE][1]:.3f}x this tree's)"
+                          for t, (_, g) in turns_b.items()))
+            st_b, rays_b, pend_b, _ = tex_b()
+    for t, info in tree_infos.items():
+        if t in tex_trees:
+            print(f"[23] ptxas {t}: " + json.dumps(
+                {k: v for k, v in info.get("ptxas", {}).items() if "k_mega_tex" in k}))
     work23 = (mega_bytes(cfg23, pf, kernels, 1, n23, tr23, r._dev, sv23, usv23),
               n23 * STAGE_OPS["mega_tex"])
     bounds23 = {"mega_tex": bound(*work23)}

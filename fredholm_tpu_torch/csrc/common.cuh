@@ -905,7 +905,20 @@ struct BsdfFull {
   int eval_lobes;     // lobe_mask and each lobe's guard (cbsdf._lobe_evals)
 };
 
-__device__ __forceinline__ BsdfFull bsdf_setup_full(const float* __restrict__ m, V3 wo, bool entering,
+// How bsdf_setup_full takes the material row: a pointer to it, kept
+// __restrict__ so that the variants passing one compile to the same
+// machine code, or a view of it (shade.cu `TexRow`) read by operator[]
+template <class M>
+struct MatRow {
+  using type = const M&;
+};
+template <>
+struct MatRow<const float*> {
+  using type = const float* __restrict__;
+};
+
+template <class M = const float*>
+__device__ __forceinline__ BsdfFull bsdf_setup_full(typename MatRow<M>::type m, V3 wo, bool entering,
                                                     int lobe_mask, const float* __restrict__ lut,
                                                     const float* __restrict__ sheen_lut) {
   BsdfFull b;

@@ -116,6 +116,30 @@
 // order between the two grids), a lane's three sections (NEE, light ray,
 // next bounce) on three warps (three times the loads), and each block
 // packing its own run of lanes (the bunched runs' chains in turn).
+//
+// The textured variant past d = 0 takes the same shape (PERF.md, at
+// texture's d = 1): about 1% of the lanes shade, in an eighth of the
+// warps (~2.6 each), and one body at 128 registers ran every lane. It
+// splits as the full variant does, into the queue, the whole textured
+// body as the shading pass (`k_mega_tex`) and a floor pass
+// (`k_mega_tex_floor`) launched beside it; the host and the count keep
+// their choices. A lane that shades nothing still writes what its texels
+// decide: the bump and normal maps turn the frame its NEE and light rays
+// leave from, and the overrides feed the setup whose `bsdf_sample` writes
+// the light ray's direction and pdf. So the floor pass keeps those taps,
+// and the light hit's emission tap in `resolve_pending`; the rest of the
+// body folds away with `alive`, as in the full variant's floor pass. The
+// body carries the ten columns the textures may override beside the row
+// pointer (`TexRow`), not a copy of the row's first 34 columns, so the
+// setup reads the others from the row where it uses them: the floor pass
+// fits 6 blocks an SM (80 registers) without spills, the whole body 4.
+// Measured against each other in turns (PERF.md): the copy (2.4-6.6%
+// slower at every d), the floor pass at 4, 5, 7 or 8 blocks an SM and the
+// whole body at 3 (within the build's noise past d = 0, or slower on some
+// setups; the whole body at 3 costs 20% at d = 0), the queue at d = 0 (the
+// count's choice 1.21x, the queue whatever the count 1.28x), and the Sobol
+// draws' direction numbers read as 16-byte loads (no gain: they sit in
+// L1). Past d = 0 the floor pass is the kernel's time.
 #include "common.cuh"
 
 namespace {
@@ -126,7 +150,8 @@ constexpr int kMegaBlocksPlain = 6;
 constexpr int kMegaBlocksRich = 5;
 constexpr int kMegaBlocksFull = 4;   // the full variant's whole body
 constexpr int kMegaBlocksFloor = 6;  // and its floor pass
-constexpr int kMegaBlocksTex = 4;
+constexpr int kMegaBlocksTex = 4;       // the textured variant's whole body
+constexpr int kMegaBlocksTexFloor = 6;  // and its floor pass
 
 __device__ __forceinline__ V3 ld3(const float* __restrict__ p, int row, long long stride, long long i) {
   return v3(p[row * stride + i], p[(row + 1) * stride + i], p[(row + 2) * stride + i]);
@@ -221,6 +246,24 @@ inline bool needs_rich(const ShadeArgs* a) {
 }
 inline bool needs_full(const ShadeArgs* a) { return (a->lobe_mask & LOBES_FULL_ONLY) != 0; }
 
+// The shading columns of a textured hit: its material row, with the ten
+// columns `_apply_tex_overrides` may override held beside it (base colour;
+// specular colour, specular roughness, metalness, coat, coat roughness)
+struct TexRow {
+  const float* __restrict__ m;
+  float base[3];  // columns M_BASE_COLOR .. + 2
+  float spec[7];  // columns M_SPECULAR_COLOR .. M_COAT_ROUGHNESS
+  __device__ __forceinline__ float& at(int k) {
+    return k < M_SPECULAR_COLOR ? base[k - M_BASE_COLOR] : spec[k - M_SPECULAR_COLOR];
+  }
+  __device__ __forceinline__ float operator[](int k) const {
+    if (k >= M_BASE_COLOR && k < M_BASE_COLOR + 3) return base[k - M_BASE_COLOR];
+    if (k >= M_SPECULAR_COLOR && k <= M_COAT_ROUGHNESS) return spec[k - M_SPECULAR_COLOR];
+    return m[k];
+  }
+};
+__device__ __forceinline__ V3 row3(const TexRow& r, int c) { return v3(r[c], r[c + 1], r[c + 2]); }
+
 // the shading BSDF of a mega variant: BsdfFull for the full one, else Bsdf
 template <bool kFull>
 __device__ __forceinline__ auto shading_bsdf(const ShadeArgs& a, const float* __restrict__ m, V3 wo,
@@ -229,6 +272,12 @@ __device__ __forceinline__ auto shading_bsdf(const ShadeArgs& a, const float* __
     return bsdf_setup_full(m, wo, entering, lobe_mask, a.lut, a.sheen_lut);
   else
     return bsdf_setup(m, wo, entering, lobe_mask, a.lut);
+}
+// and the textured one's, on the row with its overrides
+template <bool kFull>
+__device__ __forceinline__ BsdfFull shading_bsdf(const ShadeArgs& a, const TexRow& m, V3 wo, bool entering,
+                                                 int lobe_mask) {
+  return bsdf_setup_full<TexRow>(m, wo, entering, lobe_mask, a.lut, a.sheen_lut);
 }
 
 // texture kind k's tx columns of material row m: the texture id, then the
@@ -254,36 +303,39 @@ __device__ __forceinline__ V3 emission_at(const ShadeArgs& a, const float* __res
   return v3(c.r, c.g, c.b);
 }
 
-// The textured shading of a hit at uv (u, v): mt gets the material row's
-// first M_TX0 columns with `_apply_tex_overrides` applied, in its order;
-// the frame (n_s, t, b) is bumped, then normal-mapped on the unperturbed
-// frame (pt_fused.py:837-872)
-__device__ __forceinline__ void tex_shading(const ShadeArgs& a, const float* __restrict__ m, float u, float v,
-                                            float* mt, V3& n_s, V3& t, V3& b) {
+// The textured shading of a hit at uv (u, v): its shading columns, with
+// `_apply_tex_overrides` applied in its order; the frame (n_s, t, b) is
+// bumped, then normal-mapped on the unperturbed frame (pt_fused.py:837-872)
+__device__ __forceinline__ TexRow tex_shading(const ShadeArgs& a, const float* __restrict__ m, float u, float v,
+                                              V3& n_s, V3& t, V3& b) {
+  TexRow r;
+  r.m = m;
 #pragma unroll
-  for (int c = 0; c < M_TX0; ++c) mt[c] = m[c];
+  for (int c = 0; c < 3; ++c) r.base[c] = m[M_BASE_COLOR + c];
+#pragma unroll
+  for (int c = 0; c < 7; ++c) r.spec[c] = m[M_SPECULAR_COLOR + c];
   if (tex_has(a, m, 0)) {  // base_color
     const Texel4 c = tex_at(a, m, 0, u, v);
-    mt[M_BASE_COLOR] = c.r;
-    mt[M_BASE_COLOR + 1] = c.g;
-    mt[M_BASE_COLOR + 2] = c.b;
+    r.at(M_BASE_COLOR) = c.r;
+    r.at(M_BASE_COLOR + 1) = c.g;
+    r.at(M_BASE_COLOR + 2) = c.b;
   }
   if (tex_has(a, m, 1)) {  // specular_color
     const Texel4 c = tex_at(a, m, 1, u, v);
-    mt[M_SPECULAR_COLOR] = c.r;
-    mt[M_SPECULAR_COLOR + 1] = c.g;
-    mt[M_SPECULAR_COLOR + 2] = c.b;
+    r.at(M_SPECULAR_COLOR) = c.r;
+    r.at(M_SPECULAR_COLOR + 1) = c.g;
+    r.at(M_SPECULAR_COLOR + 2) = c.b;
   }
-  if (tex_has(a, m, 2)) mt[M_SPECULAR_ROUGHNESS] = jclip(tex_at(a, m, 2, u, v).r, 0.01f, 1.0f);
-  if (tex_has(a, m, 3)) mt[M_METALNESS] = tex_at(a, m, 3, u, v).r;
+  if (tex_has(a, m, 2)) r.at(M_SPECULAR_ROUGHNESS) = jclip(tex_at(a, m, 2, u, v).r, 0.01f, 1.0f);
+  if (tex_has(a, m, 3)) r.at(M_METALNESS) = tex_at(a, m, 3, u, v).r;
   if (tex_has(a, m, 4)) {  // metallic_roughness, glTF packing: g roughness, b metalness
     const Texel4 c = tex_at(a, m, 4, u, v);
-    mt[M_SPECULAR_ROUGHNESS] = jclip(c.g, 0.01f, 1.0f);
-    mt[M_METALNESS] = jclip(c.b, 0.0f, 1.0f);
+    r.at(M_SPECULAR_ROUGHNESS) = jclip(c.g, 0.01f, 1.0f);
+    r.at(M_METALNESS) = jclip(c.b, 0.0f, 1.0f);
   }
-  if (tex_has(a, m, 5)) mt[M_COAT] = jclip(tex_at(a, m, 5, u, v).r, 0.0f, 1.0f);
+  if (tex_has(a, m, 5)) r.at(M_COAT) = jclip(tex_at(a, m, 5, u, v).r, 0.0f, 1.0f);
   // reference quirk, mirrored: coat roughness reads channel .g (pt_fused.py:644)
-  if (tex_has(a, m, 6)) mt[M_COAT_ROUGHNESS] = jclip(tex_at(a, m, 6, u, v).g, 0.0f, 1.0f);
+  if (tex_has(a, m, 6)) r.at(M_COAT_ROUGHNESS) = jclip(tex_at(a, m, 6, u, v).g, 0.0f, 1.0f);
 
   V3 pt = t, pb = b, pn = n_s;
   if (tex_has(a, m, kTexHeightmap)) {
@@ -309,6 +361,18 @@ __device__ __forceinline__ void tex_shading(const ShadeArgs& a, const float* __r
   t = pt;
   b = pb;
   n_s = pn;
+  return r;
+}
+
+// the shading columns of a mega variant's hit: the material row, or (kTex)
+// the textured row, whose taps also bump and normal-map the frame
+template <bool kTex>
+__device__ __forceinline__ auto shading_row(const ShadeArgs& a, const float* __restrict__ m, float u, float v,
+                                            V3& n_s, V3& t, V3& b) {
+  if constexpr (kTex)
+    return tex_shading(a, m, u, v, n_s, t, b);
+  else
+    return m;
 }
 
 // `_resolve_pending`: bounce d-1's NEE visibility + BSDF-light-ray MIS;
@@ -422,8 +486,9 @@ __global__ void __launch_bounds__(kBlock) k_raygen(const ShadeArgs a) {
   a.rays_out[6 * n + i] = tmax;
 }
 
-// How a launch runs the body: as it stands (kPassAll), or, in the full
-// variant's floor pass, on lanes that shade nothing (kPassFloor)
+// How a launch runs the body: as it stands (kPassAll), or, in the floor
+// pass of the full or textured variant, on lanes that shade nothing
+// (kPassFloor)
 constexpr int kPassAll = 0, kPassFloor = 1;
 
 // the body of every mega variant on lane i; kFull (which implies kRich)
@@ -485,17 +550,12 @@ __device__ __forceinline__ void mega_body(const ShadeArgs& a, int i) {
   V3 tangent, bitangent;
   onb(n_s, tangent, bitangent);
 
-  // the shading columns: the material row, or (kTex) its copy with the
-  // texture overrides
-  const float* ms = m;
-  float mt[kTex ? M_TX0 : 1];
   float tex_u = 0.0f, tex_v = 0.0f;
   if constexpr (kTex) {
     tex_u = w0 * g[C_UV0] + w1 * g[C_UV0 + 2] + w2 * g[C_UV0 + 4];
     tex_v = w0 * g[C_UV0 + 1] + w1 * g[C_UV0 + 3] + w2 * g[C_UV0 + 5];
-    tex_shading(a, m, tex_u, tex_v, mt, n_s, tangent, bitangent);
-    ms = mt;
   }
+  const auto ms = shading_row<kTex>(a, m, tex_u, tex_v, n_s, tangent, bitangent);
 
   if (d == 0) {  // first-hit AOVs + emissive-hit termination (pt.cu:745-760)
     const bool cap = alive;
@@ -700,11 +760,11 @@ __device__ __forceinline__ bool shades(const ShadeArgs& a, int i) {
 // none
 __device__ __forceinline__ bool many_shade(const ShadeArgs& a, int count) { return 8 * count > a.n; }
 
-// The full variant's queue: the lanes that shade (lane_queue[0] counts
-// them, their indices go to lane_queue[2 + slot]), one atomic a warp;
-// lane_queue[1] counts the floor pass's finished blocks. Both counters are
-// 0 when it starts: the wrapper's buffer is zeroed once, and the floor
-// pass's last block sets them back to 0.
+// The queue of the full and textured variants: the lanes that shade
+// (lane_queue[0] counts them, their indices go to lane_queue[2 + slot]),
+// one atomic a warp; lane_queue[1] counts the floor pass's finished blocks.
+// Both counters are 0 when it starts: the wrapper's buffer is zeroed once,
+// and the floor pass's last block sets them back to 0.
 __global__ void __launch_bounds__(kBlock) k_mega_full_queue(const ShadeArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -718,33 +778,31 @@ __global__ void __launch_bounds__(kBlock) k_mega_full_queue(const ShadeArgs a) {
   a.lane_queue[2 + base + __popc(q & ((1u << lane) - 1u))] = i;
 }
 
-// The full variant's whole body. At d = 0 it runs alone on every lane.
-// Past it, it is the shading pass: the whole body on the queued lanes, 32
-// to a warp, from the first block on (the blocks past the queue end at
-// once), or on every lane where many shade. Its blocks start first, and
-// each lets the floor pass launch beside it at once
-// (griddepcontrol.launch_dependents), so its long chains run beside the
-// floor pass, not after it.
-__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full(const ShadeArgs a) {
+// The lane a shading pass's thread runs. At d = 0 the pass runs alone on
+// every lane. Past it, the queued lanes, 32 to a warp, from the first block
+// on (the threads past the queue get lane n and end at once), or every
+// lane where many shade. Its blocks start first, and each lets the floor
+// pass launch beside it at once (griddepcontrol.launch_dependents), so its
+// long chains run beside the floor pass, not after it.
+__device__ __forceinline__ int shading_lane(const ShadeArgs& a) {
   asm volatile("griddepcontrol.launch_dependents;");
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  int i = k;
   if (a.d > 0) {
     const int count = a.lane_queue[0];
-    if (!many_shade(a, count)) i = k < count ? a.lane_queue[2 + k] : a.n;
+    if (!many_shade(a, count)) return k < count ? a.lane_queue[2 + k] : a.n;
   }
-  mega_body<true, true, false>(a, i);
+  return k;
 }
 
-// The full variant's floor pass, past d = 0: a lane that shades nothing
-// runs the body with `alive` false at compile time. The last of its blocks
-// to finish waits for the shading pass (griddepcontrol.wait), so the
-// launch ends after both, and then zeroes the queue's counters for the
-// next launch.
-__global__ void __launch_bounds__(kBlock, kMegaBlocksFloor) k_mega_full_floor(const ShadeArgs a) {
+// A floor pass, past d = 0: a lane that shades nothing runs the body with
+// `alive` false at compile time. The last of its blocks to finish waits
+// for the shading pass (griddepcontrol.wait), so the launch ends after
+// both, and then zeroes the queue's counters for the next launch.
+template <bool kTex>
+__device__ __forceinline__ void floor_lanes(const ShadeArgs& a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < a.n && !many_shade(a, a.lane_queue[0]) && !shades(a, i))
-    mega_body<true, true, false, kPassFloor>(a, i);
+    mega_body<true, true, kTex, kPassFloor>(a, i);
   __syncthreads();
   if (threadIdx.x == 0 && atomicAdd(a.lane_queue + 1, 1) == (int)gridDim.x - 1) {
     asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -753,8 +811,27 @@ __global__ void __launch_bounds__(kBlock, kMegaBlocksFloor) k_mega_full_floor(co
   }
 }
 
+// The full variant's whole body: alone at d = 0, the shading pass past it
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFull) k_mega_full(const ShadeArgs a) {
+  mega_body<true, true, false>(a, shading_lane(a));
+}
+
+// the full variant's floor pass
+__global__ void __launch_bounds__(kBlock, kMegaBlocksFloor) k_mega_full_floor(const ShadeArgs a) {
+  floor_lanes<false>(a);
+}
+
+// The textured variant's whole body: alone at d = 0, the shading pass past
+// it
 __global__ void __launch_bounds__(kBlock, kMegaBlocksTex) k_mega_tex(const ShadeArgs a) {
-  mega_body<true, true, true>(a, blockIdx.x * blockDim.x + threadIdx.x);
+  mega_body<true, true, true>(a, shading_lane(a));
+}
+
+// the textured variant's floor pass: the taps whose texels reach what a
+// lane that shades nothing writes stay (the frame's, and the overrides
+// that feed the light ray's sample), the rest fold away with `alive`
+__global__ void __launch_bounds__(kBlock, kMegaBlocksTexFloor) k_mega_tex_floor(const ShadeArgs a) {
+  floor_lanes<true>(a);
 }
 
 // kTex implies kRich
@@ -769,6 +846,29 @@ __global__ void __launch_bounds__(kBlock) k_final(const ShadeArgs a) {
 
 inline int grid(int n) { return (n + kBlock - 1) / kBlock; }
 
+// Past d = 0, the full and textured variants: the queue, the shading pass,
+// then the floor pass launched beside it (programmatic stream
+// serialization)
+int mega_split(const ShadeArgs* a, cudaStream_t stream, void (*shading_pass)(ShadeArgs),
+               void (*floor_pass)(ShadeArgs)) {
+  if (a->lane_queue == nullptr) return (int)cudaErrorInvalidValue;
+  k_mega_full_queue<<<grid(a->n), kBlock, 0, stream>>>(*a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  shading_pass<<<grid(a->n), kBlock, 0, stream>>>(*a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  cudaLaunchAttribute beside[1];
+  beside[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  beside[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid(a->n));
+  cfg.blockDim = dim3(kBlock);
+  cfg.stream = stream;
+  cfg.attrs = beside;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, floor_pass, *a);
+}
+
 }  // namespace
 
 extern "C" int fh_raygen(const ShadeArgs* a, cudaStream_t stream) {
@@ -777,34 +877,16 @@ extern "C" int fh_raygen(const ShadeArgs* a, cudaStream_t stream) {
 }
 
 extern "C" int fh_mega(const ShadeArgs* a, cudaStream_t stream) {
-  if (a->tex_mask != 0) {
+  if (a->tex_mask != 0 && a->d > 0) return mega_split(a, stream, k_mega_tex, k_mega_tex_floor);
+  if (needs_full(a) && a->d > 0) return mega_split(a, stream, k_mega_full, k_mega_full_floor);
+  if (a->tex_mask != 0)
     k_mega_tex<<<grid(a->n), kBlock, 0, stream>>>(*a);
-  } else if (needs_full(a) && a->d == 0) {
+  else if (needs_full(a))
     k_mega_full<<<grid(a->n), kBlock, 0, stream>>>(*a);
-  } else if (needs_full(a)) {
-    // the queue, the shading pass, then the floor pass launched beside it
-    // (programmatic stream serialization)
-    if (a->lane_queue == nullptr) return (int)cudaErrorInvalidValue;
-    k_mega_full_queue<<<grid(a->n), kBlock, 0, stream>>>(*a);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    k_mega_full<<<grid(a->n), kBlock, 0, stream>>>(*a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    cudaLaunchAttribute beside[1];
-    beside[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    beside[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid(a->n));
-    cfg.blockDim = dim3(kBlock);
-    cfg.stream = stream;
-    cfg.attrs = beside;
-    cfg.numAttrs = 1;
-    if ((e = cudaLaunchKernelEx(&cfg, k_mega_full_floor, *a)) != cudaSuccess) return (int)e;
-  } else if (needs_rich(a)) {
+  else if (needs_rich(a))
     k_mega<true><<<grid(a->n), kBlock, 0, stream>>>(*a);
-  } else {
+  else
     k_mega<false><<<grid(a->n), kBlock, 0, stream>>>(*a);
-  }
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,9 @@ coat, transmission, sheen and diffuse_t) and tex (any texture kind, with
 every feature of the full one; the mega and final kernels then fetch the
 texels from dev["tex_runs"]); LAUNCHES counts every mega launch under
 "mega" and also under "mega_plain", "mega_rich", "mega_full" or
-"mega_tex".
+"mega_tex". Past d = 0 the full and tex variants each run as three
+kernels (a queue of the shading lanes, a shading pass and a floor pass
+beside it) over the scratch `lane_queue` keeps: one launch still.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ CUDA_LOBES = cbsdf.ALL_LOBES
 # the lobes only mega's full variant has (csrc/common.cuh LOBES_FULL_ONLY)
 FULL_LOBES = ("coat", "transmission", "sheen", "diffuse_t")
 CUDA_SKIES = (pf.SKY_CONSTANT, pf.SKY_HOSEK)
+# the mega variants that split past d = 0 and read the lane queue
+# (csrc/shade.cu `mega_split`)
+SPLIT_VARIANTS = ("full", "tex")
 
 
 def _lobe_mask(cfg: pf.FusedConfig) -> int:
@@ -202,15 +207,15 @@ def raygen(cfg: pf.FusedConfig, sv, usv, n_spp):
     return state, sample_idx, rays
 
 
-# {device: int32 [2 + N]}: the scratch of mega's full variant on a device
+# {device: int32 [2 + N]}: the scratch of mega's split variants on a device
 _LANE_QUEUES: Dict[torch.device, torch.Tensor] = {}
 
 
 def lane_queue(n: int, dev) -> torch.Tensor:
-    """The full variant's scratch on `dev` for n lanes (csrc/shade.cu
+    """The split variants' scratch on `dev` for n lanes (csrc/shade.cu
     `k_mega_full_queue`): zeroed when made, kept for every later launch on
-    the device, since its kernels leave its two counters at 0; made anew,
-    zeroed, only for more lanes than it holds."""
+    the device, since their kernels leave its two counters at 0; made
+    anew, zeroed, only for more lanes than it holds."""
     dev = torch.device(dev)
     q = _LANE_QUEUES.get(dev)
     if q is None or q.numel() < 2 + n:
@@ -248,7 +253,7 @@ def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     aov = (torch.empty((pf.AOV_ROWS, n), dtype=torch.float32, device=dev)
            if d == 0 else None)
     variant = mega_variant(cfg)
-    if variant == "full":
+    if variant in SPLIT_VARIANTS:
         ptrs["lane_queue"] = lane_queue(n, dev).data_ptr()
     a = _args(cfg, sv, usv, n_spp, state_out=state_out.data_ptr(),
               rays_out=rays_out.data_ptr(), pending_out=pending_out.data_ptr(),

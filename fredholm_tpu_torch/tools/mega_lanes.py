@@ -1,11 +1,12 @@
-"""Lane counts of mega's full variant.
+"""Lane counts of mega's full and textured variants.
 
 What `chip_smoke.py` [20] prints about `k_mega_full` (csrc/shade.cu) at
-transmission_rough's d = 1, computed with the stage twins' own code from
-the inputs the kernel gets:
+transmission_rough's d = 1, and [23] about `k_mega_tex` on the texture
+setups, computed with the stage twins' own code from the inputs the
+kernel gets:
 
 - `shading_lanes`: the lanes that shade bounce d (alive, and their ray
-  hit): past d = 0, those the kernel queues for its shading pass; its
+  hit): past d = 0, those the variant queues for its shading pass; its
   floor pass runs the others with `alive` false at compile time.
 - `eval_lobes`: each lane's `BsdfFull::eval_lobes`, the lobes of
   `lobes_on` whose guard holds (cbsdf._lobe_evals), from the twin's

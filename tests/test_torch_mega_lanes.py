@@ -1,16 +1,19 @@
-"""The lane counts of mega's full variant (fredholm_tpu_torch/tools/
+"""The lane counts of mega's split variants (fredholm_tpu_torch/tools/
 mega_lanes.py) on the CPU, on the scene of test_torch_lobes.py: the
-Cornell box whose white faces and a sphere inside turn every lobe on.
+Cornell box whose white faces and a sphere inside turn every lobe on,
+and on test_torch_textures.py's, where every material also has one
+texture kind.
 
-- `shading_lanes`, the lanes the kernel's floor pass queues for its
-  shading pass (csrc/shade.cu `shades`), are the lanes whose path-vertex
-  count the twin steps, at every bounce;
+- `shading_lanes`, the lanes the full and textured variants queue for
+  their shading pass (csrc/shade.cu `shades`), are the lanes whose
+  path-vertex count the twin steps, at every bounce of both pipelines;
+  both pipelines take a variant that reads the lane queue;
 - `eval_lobes` gates each lobe as cbsdf._lobe_evals does: where a bit is
   off the twin's lobe value and pdf are zero; an all-lobe face seen from
   outside evaluates all seven lobes, from inside the two that do not need
   `entering`;
 - `warp_lobe_stats` counts warps, distinct sets and unions by hand;
-- `kernels.lane_queue`, the full variant's scratch, is zeroed once and
+- `kernels.lane_queue`, the split variants' scratch, is zeroed once and
   kept.
 """
 
@@ -26,6 +29,7 @@ from fredholm_tpu_torch.fused.cvec import V3
 from fredholm_tpu_torch.scene.device import build_device_scene
 from fredholm_tpu_torch.tools import mega_lanes
 
+import test_torch_textures as textures
 from test_torch_lobes import W, H, _cfgs, _lobe_scene
 
 # one intra-op thread: the suite runs its files in parallel processes
@@ -37,19 +41,18 @@ INSIDE_BITS = (1 << cbsdf.ALL_LOBES.index("transmission")) | \
     (1 << cbsdf.ALL_LOBES.index("diffuse_t"))
 
 
-@pytest.fixture(scope="module")
-def stages():
+def _stages(scene, cfg):
     """Each mega stage's inputs and the twin's outputs over one sample of
-    the port's CPU pipeline with every lobe on: (d, state, Traced, out)."""
-    dev = build_device_scene(_lobe_scene(), "cpu")
-    cfg, _ = _cfgs(cbsdf.ALL_LOBES)
+    the port's CPU pipeline on `scene`: (cfg, dev, [(d, state, Traced,
+    out)])."""
+    dev = build_device_scene(scene, "cpu")
     cam = Camera(origin=np.asarray([0.0, 0.9, 1.2], np.float32))
     params = {"camera": cam.device_params("cpu"), "seed": 5,
               "bg_color": np.asarray([0.3, 0.4, 0.5], np.float32),
               "directional_light": {"le": np.asarray([2.0, 1.9, 1.8], np.float32),
                                     "dir": np.asarray([0.3, 0.9, 0.3], np.float32),
                                     "angle": np.float32(1.0)}}
-    n = W * H
+    n = cfg.width * cfg.height
     sv, usv = tpf.pack_scalars(params, n, "cpu")
     n_spp = torch.as_tensor(np.random.default_rng(23).integers(0, 40, n).astype(np.int64))
     state, sidx, rays = kernels.raygen(cfg, sv, usv, n_spp)
@@ -62,9 +65,24 @@ def stages():
     return cfg, dev, out
 
 
-def test_shading_lanes_are_the_lanes_the_twin_counts(stages):
-    cfg, _, out = stages
-    n = W * H
+@pytest.fixture(scope="module")
+def stages():
+    """The pipeline with every lobe on (the full variant)."""
+    return _stages(_lobe_scene(), _cfgs(cbsdf.ALL_LOBES)[0])
+
+
+@pytest.fixture(scope="module")
+def tex_stages():
+    """The pipeline with every lobe and every texture kind on (the
+    textured variant), W x H lanes of test_torch_textures.py."""
+    return _stages(textures._kind_scene(), textures._cfgs()[0])
+
+
+@pytest.mark.parametrize("pipeline", ["stages", "tex_stages"])
+def test_shading_lanes_are_the_lanes_the_twin_counts(pipeline, request):
+    cfg, _, out = request.getfixturevalue(pipeline)
+    assert kernels.mega_variant(cfg) in kernels.SPLIT_VARIANTS
+    n = cfg.width * cfg.height
     for d, state, tr, res in out:
         shading = mega_lanes.shading_lanes(cfg, state, tr, n, d)
         stepped = res[0][tpf.ST_NV] - state[tpf.ST_NV] == 1.0
