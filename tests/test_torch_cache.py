@@ -1,5 +1,6 @@
 """A cache, shared by the test workers of one session, for the reference
-results the port's tests compare against. It holds no tests.
+results the port's tests compare against, and the fixture that frees a
+worker's memory after each of the port's test files.
 
 The suite runs under pytest-xdist with `--dist load`: the tests of one
 file are dealt to several worker processes, and each rebuilds the file's
@@ -15,19 +16,31 @@ directory all workers of the session share (the parent of each worker's
 base temporary directory; the base directory itself without xdist), and
 are keyed by a hash of the inputs that determine them.
 
-Its one test holds the bounded wait.
+Each worker keeps every program JAX compiled for the tests it ran (several
+GB after a file of reference renders) for the rest of the session, while
+the reference's longest tests still run on other workers. Every port test
+file imports `release_compiled_programs`, an autouse module fixture that
+drops them after the file's last test and hands the freed heap back to
+the system; a later call that needs a program again loads it from JAX's
+persistent compile cache or compiles it anew.
+
+Its tests hold the bounded wait and the release.
 """
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
+import gc
 import hashlib
 import os
 import sys
 import time
 from typing import Callable, Dict, List, Tuple
 
+import jax
 import numpy as np
+import pytest
 
 
 def _feed(h, x) -> None:
@@ -147,3 +160,32 @@ def test_wait_on_a_held_entry_is_bounded(tmp_path, monkeypatch):
     with np.load(stem + ".npz") as z:
         assert z["x"].tolist() == [0, 1, 2]
     assert not [f for f in os.listdir(tmp_path) if ".tmp" in f]
+
+
+def release_memory() -> None:
+    """Drop JAX's compiled programs and traces in this process, collect
+    what they held, and return the freed heap to the system (glibc keeps it
+    otherwise)."""
+    jax.clear_caches()
+    gc.collect()
+    if sys.platform.startswith("linux"):
+        try:
+            ctypes.CDLL("libc.so.6").malloc_trim(0)
+        except OSError:
+            pass
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_compiled_programs():
+    """After the last test of the file that imports it: release_memory."""
+    yield
+    release_memory()
+
+
+def test_release_drops_compiled_programs():
+    f = jax.jit(lambda x: x * 2.0)
+    assert float(f(np.float32(1.5))) == 3.0
+    assert f._cache_size() == 1
+    release_memory()
+    assert f._cache_size() == 0
+    assert float(f(np.float32(2.0))) == 4.0

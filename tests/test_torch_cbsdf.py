@@ -15,6 +15,7 @@ from fredholm_tpu.fused import cbsdf as jb
 from fredholm_tpu.fused.cvec import V3 as JV3
 from fredholm_tpu_torch.fused import cbsdf as tb
 from fredholm_tpu_torch.fused.cvec import V3 as TV3
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

@@ -51,7 +51,8 @@ from fredholm_tpu_torch.scene import device as tdev
 from fredholm_tpu_torch.scene.procedural import hosek_sweep_scene, terrain
 
 from test_bvh import _sphere_blas
-from test_torch_cache import cached, cached_all
+from test_torch_cache import (  # noqa: F401 (autouse)
+    cached, cached_all, release_compiled_programs)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

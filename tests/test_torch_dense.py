@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from fredholm_tpu.accel.pallas_dense import intersect_closest_pallas_c, prepare_tri_soa
 from fredholm_tpu_torch import _build
 from fredholm_tpu_torch.accel import dense
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

@@ -22,6 +22,7 @@ from fredholm_tpu_torch import _build
 from fredholm_tpu_torch.accel import dense
 from fredholm_tpu_torch.tools import any_lanes
 from test_torch_dense import _soup
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

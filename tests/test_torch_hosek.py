@@ -39,7 +39,8 @@ from fredholm_tpu_torch.fused.cvec import V3
 from fredholm_tpu_torch.scene.procedural import terrain
 from fredholm_tpu_torch.sky import hosek as th
 
-from test_torch_cache import cached
+from test_torch_cache import (  # noqa: F401 (autouse)
+    cached, release_compiled_programs)
 from test_torch_shade import _compare, _to_jax
 
 # one intra-op thread: the suite runs its files in parallel processes, and

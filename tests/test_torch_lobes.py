@@ -35,7 +35,7 @@ from fredholm_tpu_torch.scene import procedural as tproc
 from fredholm_tpu_torch.scene.device import build_device_scene
 from fredholm_tpu_torch.scene.types import Material
 
-from test_torch_cache import cached_all
+from test_torch_cache import cached_all, release_compiled_programs  # noqa: F401 (autouse)
 from test_torch_shade import _compare, _to_jax
 
 # one intra-op thread: the suite runs its files in parallel processes, and

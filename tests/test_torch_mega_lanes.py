@@ -31,6 +31,7 @@ from fredholm_tpu_torch.tools import mega_lanes
 
 import test_torch_textures as textures
 from test_torch_lobes import W, H, _cfgs, _lobe_scene
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes
 torch.set_num_threads(1)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from fredholm_tpu_torch import _build
 from fredholm_tpu_torch.tools import probe_bf16 as probe
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

@@ -24,7 +24,7 @@ from fredholm_tpu_torch import Renderer, cornell_box
 from fredholm_tpu_torch.scene import device as tdev
 from fredholm_tpu_torch.scene.procedural import sphere_array_test
 
-from test_torch_cache import cached_all
+from test_torch_cache import cached_all, release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

@@ -53,7 +53,7 @@ from fredholm_tpu_torch.scene.types import Material
 from fredholm_tpu_torch.tools.resident_steps import retest_case
 
 from test_bvh import _sphere_blas
-from test_torch_cache import cached
+from test_torch_cache import cached, release_compiled_programs  # noqa: F401 (autouse)
 from test_torch_render import LAYERS, _metal_row, _metal_row_reference
 
 # one intra-op thread: the suite runs its files in parallel processes, and

@@ -15,6 +15,7 @@ from fredholm_tpu_torch.core import rng as trng
 from fredholm_tpu_torch.fused import cmappings as tmap
 from fredholm_tpu_torch.sampling import cmj as tcmj
 from fredholm_tpu_torch.sampling import sobol as tsobol
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

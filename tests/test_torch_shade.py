@@ -25,6 +25,7 @@ from fredholm_tpu_torch.fused import kernels
 from fredholm_tpu_torch.fused import pt_fused as tpf
 from fredholm_tpu_torch.fused.cvec import V3 as TV3
 from fredholm_tpu_torch.scene.device import COL, GEOM_COLS, build_device_scene
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores

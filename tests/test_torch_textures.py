@@ -54,7 +54,7 @@ from fredholm_tpu_torch.scene import texture as ttex
 from fredholm_tpu_torch.scene.device import COL, TEX_KINDS, build_device_scene, build_host_tables
 from fredholm_tpu_torch.scene.types import TextureImage
 
-from test_torch_cache import cached_all
+from test_torch_cache import cached_all, release_compiled_programs  # noqa: F401 (autouse)
 from test_torch_lobes import ALL_ON, _byte_equal
 from test_torch_shade import _to_jax
 

@@ -44,6 +44,7 @@ from fredholm_tpu_torch.bsdf import bsdf as tb
 from fredholm_tpu_torch.sampling import sampler as ts
 from fredholm_tpu_torch.scene.procedural import sphere_array_test
 from fredholm_tpu_torch.scene.types import Material
+from test_torch_cache import release_compiled_programs  # noqa: F401 (autouse)
 
 # one intra-op thread: the suite runs its files in parallel processes, and
 # torch's default of a thread per core makes them fight for the cores
