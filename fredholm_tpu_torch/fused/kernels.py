@@ -44,9 +44,6 @@ CUDA_LOBES = cbsdf.ALL_LOBES
 # the lobes only mega's full variant has (csrc/common.cuh LOBES_FULL_ONLY)
 FULL_LOBES = ("coat", "transmission", "sheen", "diffuse_t")
 CUDA_SKIES = (pf.SKY_CONSTANT, pf.SKY_HOSEK)
-# the mega variants that split past d = 0 and read the lane queue
-# (csrc/shade.cu `mega_split`)
-SPLIT_VARIANTS = ("full", "tex")
 
 
 def _lobe_mask(cfg: pf.FusedConfig) -> int:
@@ -252,14 +249,13 @@ def mega(cfg: pf.FusedConfig, d: int, sv, usv, tables: Dict, n_spp,
     pending_out = torch.empty((pf.PD_ROWS, n), dtype=torch.float32, device=dev)
     aov = (torch.empty((pf.AOV_ROWS, n), dtype=torch.float32, device=dev)
            if d == 0 else None)
-    variant = mega_variant(cfg)
-    if variant in SPLIT_VARIANTS:
-        ptrs["lane_queue"] = lane_queue(n, dev).data_ptr()
+    # fh_mega decides which variants read it (csrc/shade.cu `mega_split`)
+    ptrs["lane_queue"] = lane_queue(n, dev).data_ptr()
     a = _args(cfg, sv, usv, n_spp, state_out=state_out.data_ptr(),
               rays_out=rays_out.data_ptr(), pending_out=pending_out.data_ptr(),
               aov_out=aov.data_ptr() if aov is not None else None, **ptrs)
     _launch("mega", _build.lib().fh_mega, a, dev)
-    _build.LAUNCHES["mega_" + variant] += 1
+    _build.LAUNCHES["mega_" + mega_variant(cfg)] += 1
     return state_out, rays_out, pending_out, aov
 
 

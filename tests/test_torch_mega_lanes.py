@@ -82,7 +82,7 @@ def tex_stages():
 @pytest.mark.parametrize("pipeline", ["stages", "tex_stages"])
 def test_shading_lanes_are_the_lanes_the_twin_counts(pipeline, request):
     cfg, _, out = request.getfixturevalue(pipeline)
-    assert kernels.mega_variant(cfg) in kernels.SPLIT_VARIANTS
+    assert kernels.mega_variant(cfg) == {"stages": "full", "tex_stages": "tex"}[pipeline]
     n = cfg.width * cfg.height
     for d, state, tr, res in out:
         shading = mega_lanes.shading_lanes(cfg, state, tr, n, d)
