@@ -33,14 +33,16 @@ exits non-zero without the final `ok` line:
    Renderer(device="cuda") and scored against tests/golden/cornell.npz
 5. metric 1: Cornell 512^2, 16 spp, depth 5 after 2 warm-up spp, with the
    launch counts of that run, the device's busy share and time by kernel
-   (torch.profiler), and per-kernel times vs the plain twins; then
+   (torch.profiler, with the window's host-to-device copies and stream
+   synchronizes), and per-kernel times vs the plain twins; raygen and
+   the final resolve also by CUDA-graph replays beside their bounds; then
    B1 and mega at each d = 0..4 of metric 1 (CUDA events and CUDA-graph
    replays, each buffer's live share, both terms of each bound) beside
    the times of the designs they replaced, and in turns with the kernels
    of each tree given by --against, their outputs held equal first (also
    mega at metric 2's d = 1, in phase 9)
 6. the kernel table, the card line, then {"ok": true, "device": ...}
-   (printed last, after phases 7-23)
+   (printed last, after phases 7-24)
 7. the hosek-sweep scene (bench.py metric 2, 96,770 triangles) uploaded
    through Renderer(device="cuda"); the clustered closest-hit / any-hit
    kernels bit-equal to their twins in both kept variants (top levels
@@ -55,8 +57,9 @@ exits non-zero without the final `ok` line:
    Renderer(device="cuda"), scored against tests/golden/*.npz
 9. metric 2: the hosek sweep at 512x288, 8 spp, depth 5 after 2 warm-up
    spp (bench.py:170-182), with its launch counts, and per-kernel times
-   vs the plain twins at its shapes, beside each kernel's bound, and the
-   device's busy share from torch.profiler; B4/B5's bounds counted with
+   vs the plain twins at its shapes, beside each kernel's bound (the slot
+   fetch also by CUDA-graph replays), and the device's busy share from
+   torch.profiler; B4/B5's bounds counted with
    the front-to-back walk and with the PR-4 table-order walk, and both
    variants timed in turns (CUDA events around the wrapper, and CUDA-graph
    replays) at the d = 1 blocks, the primaries and two floors (all lanes
@@ -149,6 +152,15 @@ exits non-zero without the final `ok` line:
     and 2 and normalmap's and emission_texture's d = 1 the shading lanes
     and the warps of 32 holding one, and the variant's graph ms in turns
     with the textured variant of each --against tree that has one
+24. instanced scenes: metric 5's scene (bench.py:270-287, 16 placements
+    of one 649,800-triangle BLAS, 10.4M triangles) uploaded with the BLAS
+    build's seconds; the instanced slot fetch (B6 with the hit-attribute
+    transform) bit-equal to its twin on metric 5's d = 0 and d = 1 hits,
+    timed (CUDA events, a graph replay) beside its bound; compare_stages
+    on the instanced golden's setup at 512x512, d = 0 and 1; the instanced
+    golden through Renderer(device="cuda"); metric 5 (512x288, Hosek sky
+    and the sun, depth 5, 2 spp after 2 warm-up spp) with its launch
+    counts and the profiler's busy share and top kernels
 """
 
 from __future__ import annotations
@@ -212,6 +224,10 @@ REPLACED_MS = {
 # texture setup it is timed on
 STAGE_OPS = {"raygen": 300, "mega": 1500, "mega_full": 3300, "mega_tex": 3450,
              "final_resolve": 150}
+# float operations the instanced slot fetch's transform takes a lane
+# (csrc/slot_fetch.cu k_slot_fetch_inst): three vertices by the affine rows
+# (54), three normals by the normal matrix, normalized (78), the area (22)
+INST_XFORM_OPS = 154
 
 
 def sass_by_kernel(lib_path: str, cuobjdump: str) -> dict:
@@ -284,6 +300,25 @@ def bound(n_bytes: float, n_ops: float):
     t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_o = n_ops / PEAK_FP32_PER_S * 1e3
     return ((t_b, "bytes") if t_b >= t_o else (t_o, "operations")) + (max(t_b, 2.0 * t_o),)
+
+
+def final_bytes(cfg, n, tables, occ_bytes, dense):
+    """Bytes k_final (csrc/shade.cu `resolve_pending`) must move over n
+    lanes: a lane reads its radiance (12 B), each NEE block's occlusion
+    (occ_bytes: a dense trace's 4 B prim, a split any-hit trace's 1 B
+    bool) and pending radiance (12 B), the light block's direction and
+    origin (24 B) and occlusion, the pending wi.y, pdf and throughput
+    (20 B), and writes its radiance (12 B); with area lights also the
+    light block's barycentrics (8 B) and hit geometry: a dense scene's
+    fused_table and material rows once each, a clustered one's 26 planes a
+    lane. Not the whole state, pending and ray buffers."""
+    nee = 1 + int(cfg.has_dl) + int(cfg.n_lights > 0)
+    per_lane = 12 + nee * (occ_bytes + 12) + 24 + occ_bytes + 20 + 12
+    once = 0
+    if cfg.n_lights > 0:
+        per_lane += 8 + (0 if dense else 4 * 26)
+        once = nbytes(tables["fused_mat_table"]) + (nbytes(tables["fused_table"]) if dense else 0)
+    return n * per_lane + once
 
 
 def mega_bytes(cfg, pf, kernels, d, n, tr, tables, sv, usv):
@@ -772,6 +807,12 @@ def profile_busy(tag, what, r, depth, spp=2, start_tracer=True):
           f"{busy_ms:.3f} ms, busy share {busy_ms / wall_ms:.4f}")
     for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"{tag}   {v:.3f} ms {k[:90]}")
+    # the host's blocking copies: pageable host-to-device copies each end
+    # in a stream synchronize, which holds the host back to the card
+    sync = {ev.key: ev.count for ev in prof.key_averages()
+            if "Memcpy HtoD" in ev.key or ev.key in ("cudaMemcpyAsync", "cudaStreamSynchronize",
+                                                     "cudaDeviceSynchronize")}
+    print(f"{tag}   copies and synchronizes in {spp} spp: {json.dumps(sync)}")
 
 
 @contextlib.contextmanager
@@ -858,6 +899,7 @@ def golden_setup(name, size=None):
     from fredholm_tpu_torch.scene.procedural import (
         emission_texture_test,
         furnace_sphere,
+        instanced_tiles,
         normalmap_test,
         sphere_array_test,
         sphere_grid_test,
@@ -899,6 +941,8 @@ def golden_setup(name, size=None):
                       (0.2, 0.2, 0.25), 12, 3),
         "emission_texture": (64, emission_texture_test, (0.0, 1.0, 2.6), None, (0.0, 0.0, 0.0),
                              16, 3),
+        "instanced": (48, lambda: instanced_tiles(grid=2, tile_n=24, size=4.0), (0.0, 3.0, 7.0),
+                      ((2.0, 1.9, 1.8), (0.35, 0.75, 0.3), 0.5), (0.4, 0.5, 0.7), 8, 3),
     }
     g_size, scene, origin, sun, bg, spp, depth = table[name]
     w = size or g_size
@@ -908,6 +952,8 @@ def golden_setup(name, size=None):
     if name == "thinlens":
         r.camera.f_number = 1.5
         r.camera.focus = 2.4
+    if name == "instanced":
+        r.camera.look_around(0.0, -0.3)
     r.camera._update_transform()
     if sun is not None:
         r.set_directional_light(sun[0], sun[1], angle=sun[2])
@@ -1160,6 +1206,8 @@ def main() -> None:
         "launches": launches1,
     }))
     profile_busy("[5]", "metric 1", r, depth)
+    if len(trees) > 1:
+        metric_turns("[5]", "metric 1", r, spp, depth, _build, trees, rounds)
 
     # per-kernel times at metric-1 shapes (CUDA events), in turns
     st, si, rays = kernels.raygen(cfg, sv, usv, n_spp)
@@ -1191,11 +1239,23 @@ def main() -> None:
         "raygen": bound(nbytes(n_spp) + n * (4 * pf.ST_ROWS + 8 + 4 * pf.RAY_ROWS),
                         n * STAGE_OPS["raygen"]),
         "mega": bound(*work1["mega"]),
-        "final_resolve": bound(nbytes(st, pend, rays[:, :3 * n], hf.hits) + 12 * n,
+        "final_resolve": bound(final_bytes(cfg, n, scene_dev, 4, True),
                                n * STAGE_OPS["final_resolve"]),
     }
     for k, (ms, by, unfused) in bounds1.items():
         print(f"[5] {k}: bound {ms:.4f} ms ({by}), unfused {unfused:.4f} ms")
+    # the short kernels by CUDA-graph replays (device time alone: an event
+    # bracket around such a launch reads mostly the launch), beside their
+    # bounds; Queue B's rule redesigns a kernel under half its bound
+    graph_short = {
+        "raygen": graph_ms(lambda: kernels.raygen(cfg, sv, usv, n_spp)),
+        "final_resolve": graph_ms(lambda: kernels.final(cfg, sv, scene_dev, st, rays, pend, hf)),
+    }
+    for k, g in graph_short.items():
+        print(f"[5] {k} at metric 1's shapes: graph {g:.5f} ms, events {times1[k][0]:.5f} ms, "
+              f"bound {bounds1[k][0]:.5f} ms ({bounds1[k][1]}), {bounds1[k][0] / g:.3f} of "
+              f"the bound by graph, launches on metric 1 "
+              f"{launches1.get({'raygen': 'raygen', 'final_resolve': 'final'}[k], 0)}")
     # both terms: the kernels build -fmad=false, so each product and sum
     # issues on its own, at half the 67 TFLOP/s the operation term uses
     for k, (b, o) in work1.items():
@@ -1398,6 +1458,8 @@ def main() -> None:
     }))
 
     profile_busy("[9]", "metric 2", rs, depth2, start_tracer=False)
+    if len(trees) > 1:
+        metric_turns("[9]", "metric 2", rs, spp2, depth2, _build, trees, rounds)
 
     # per-kernel times at metric-2 shapes (a real bounce's blocks), in turns
     st, si, rays = kernels.raygen(cfg2, sv2, usv2, n_spp2)
@@ -1471,11 +1533,17 @@ def main() -> None:
                         ns * STAGE_OPS["raygen"]),
         "mega": bound(mega_bytes(cfg2, pf, kernels, 1, ns, tr1, sweep_dev, sv2, usv2),
                       ns * STAGE_OPS["mega"]),
-        "final_resolve": bound(nbytes(st, pend, rays[:, :(nb2 - 1) * ns], trf.occ) + 12 * ns,
+        "final_resolve": bound(final_bytes(cfg2, ns, sweep_dev, 1, False),
                                ns * STAGE_OPS["final_resolve"]),
     }
     for k, (ms, by, unfused) in bounds2.items():
         print(f"[9] {k}: bound {ms:.4f} ms ({by}), unfused {unfused:.4f} ms")
+    g_fetch = graph_ms(lambda: slot_fetch.fetch_geom_by_slot(sweep_dev["slot_attrs"], slots))
+    graph_short["slot_fetch"] = g_fetch
+    print(f"[9] slot_fetch at metric 2's d = 1: graph {g_fetch:.5f} ms, events "
+          f"{times2['slot_fetch'][0]:.5f} ms, bound {bounds2['slot_fetch'][0]:.5f} ms "
+          f"({bounds2['slot_fetch'][1]}), {bounds2['slot_fetch'][0] / g_fetch:.3f} of the bound "
+          f"by graph, launches on metric 2 {launches2.get('slot_fetch', 0)}")
 
     # B4/B5 in every kept variant, in turns: CUDA events around the wrapper
     # calls (the kernel table's times) and CUDA-graph replays (device time
@@ -2171,7 +2239,8 @@ def main() -> None:
                 or counts.get("final", 0) != kw["n_samples"]:
             raise AssertionError(f"[22] golden {name}: launches {counts}, the textured variant "
                                  f"expected {want_tex} times")
-    print("[22] the port scores 17 of the 20 goldens (left: hero, instanced, ibl)")
+    print("[22] the three texture goldens scored; with [24]'s instanced golden the port "
+          "scores 18 of the 20 goldens (left: hero, ibl)")
     phase_done(22, t0)
 
     # ---- 23: the texture metrics: the three setups at 512x512
@@ -2278,6 +2347,155 @@ def main() -> None:
           f"{bounds23['mega_tex'][1]}")
     phase_done(23, t0)
 
+    # ---- 24: instanced scenes: the instanced slot fetch (B6 with the
+    # hit-attribute transform, Queue B row B2d) on metric 5's slots, the
+    # instanced golden's stages and the golden, then metric 5 (bench.py:
+    # 270-287: 16 placements of one 649,800-triangle BLAS, 512x288, Hosek
+    # sky and the sun, depth 5)
+    t0 = time.perf_counter()
+    from fredholm_tpu_torch.scene import device as scene_device
+
+    build24 = {"bvh": 0.0, "hierarchy": 0.0}
+
+    def timed24(key, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                build24[key] += time.perf_counter() - t
+        return call
+
+    kept24 = (scene_device.build_bvh, scene_device.extract_hierarchy)
+    scene_device.build_bvh = timed24("bvh", kept24[0])
+    scene_device.extract_hierarchy = timed24("hierarchy", kept24[1])
+    try:
+        tiles = ft.instanced_tiles()
+        t_up = time.perf_counter()
+        r5 = ft.Renderer(512, 288, device="cuda")
+        r5.set_scene(tiles)
+        torch.cuda.synchronize()
+        upload24 = time.perf_counter() - t_up
+    finally:
+        scene_device.build_bvh, scene_device.extract_hierarchy = kept24
+    r5.camera.origin = np.asarray([0.0, 9.0, 38.0], np.float32)
+    r5.camera.look_around(0.0, -0.22)
+    r5.camera._update_transform()
+    r5.set_directional_light([2.0, 1.9, 1.8], [0.35, 0.75, 0.3], angle=0.5)
+    r5.load_arhosek_sky(turbidity=3.0, albedo=0.3)
+    dev5 = r5._dev
+    c5 = dev5["clusters"]
+    n_tris5 = len(tiles.instances) * tiles.base.n_faces()
+    print(f"[24] metric 5 scene: {len(tiles.instances)} placements x {tiles.base.n_faces()} "
+          f"= {n_tris5} triangles, one BLAS of {c5['sc_rec'].shape[0]} superclusters and "
+          f"{c5['cl_rec'].shape[0]} clusters; BLAS build (the port's numpy SAH builder) "
+          f"{build24['bvh']:.1f} s, cluster hierarchy {build24['hierarchy']:.1f} s, set_scene "
+          f"{upload24:.1f} s; staged tables {clustered.stage_bytes(c5)} B")
+    if c5["identity"] or c5["n_instances"] != 16 or n_tris5 < 10_000_000:
+        raise AssertionError("[24] metric 5's scene is not 16 moved placements of 10.4M triangles")
+
+    # the instanced fetch against its twin on metric 5's d = 0 and d = 1 hits
+    n5 = r5.width * r5.height
+    p5 = r5._params(5)
+    cfg5 = pf.make_config(dev5, p5)
+    sv5, usv5 = pf.pack_scalars(p5, n5, dev)
+    n_spp5 = torch.full((n5,), 3, dtype=torch.int64, device=dev)
+    nb5, n_occ5 = len(cfg5.blocks), len(cfg5.occ_blocks(True))
+    st5, si5, rays5 = kernels.raygen(cfg5, sv5, usv5, n_spp5)
+    tr5 = pf.trace_stage(cfg5, dev5, rays5, n5, 1, 0, coherent=True)
+    sa5, it5 = dev5["slot_attrs"], dev5["inst_table"]
+    err24 = []
+    for d in (0, 1):
+        if d == 1:
+            st5, rays5, pend5, _ = kernels.mega(cfg5, 0, sv5, usv5, dev5, n_spp5, si5, st5, rays5,
+                                                None, tr5)
+            tr5 = pf.trace_stage(cfg5, dev5, rays5, n5, nb5, n_occ5)
+        slots5, inst5 = tr5.hits["slot"], tr5.hits["inst"]
+        gk = slot_fetch.fetch_geom_by_slot(sa5, slots5, inst5, it5)
+        gt = slot_fetch.fetch_inst_twin(sa5, slots5, inst5, it5)
+        same = torch.equal(gk.view(torch.int32), gt.view(torch.int32))
+        err24.append((gk - gt).abs().max().item())
+        hit5 = slots5 >= 0
+        print(f"[24] slot_fetch_inst d={d}: {slots5.shape[0]} lanes, {int(hit5.sum())} hits on "
+              f"{torch.unique(inst5[hit5]).numel()} placements, "
+              f"{torch.unique(slots5[hit5]).numel()} distinct slots; "
+              f"{'bit-equal to' if same else 'DIFFERS from'} its twin (max|err| {err24[-1]:.3g}); "
+              f"the pipeline's planes {'are' if torch.equal(tr5.geom, gk) else 'are NOT'} the "
+              f"kernel's")
+        if not same or not torch.equal(tr5.geom, gk):
+            raise AssertionError(f"[24] the instanced slot fetch differs from its twin at d={d}")
+    results["slot_fetch_inst"] = max(err24)
+    times24 = time_pairs("[24]", {"slot_fetch_inst": (
+        lambda: slot_fetch.fetch_geom_by_slot(sa5, slots5, inst5, it5),
+        lambda: slot_fetch.fetch_inst_twin(sa5, slots5, inst5, it5))}, {})
+    hit_slots5 = torch.unique(slots5[slots5 >= 0]).numel()
+    bounds24 = {"slot_fetch_inst": bound(
+        # the slot and inst of every lane, 26 planes written for each and
+        # read for each distinct hit slot, the rows of the placements hit
+        nbytes(slots5, inst5) + 4 * slot_fetch.A_USED * (slots5.shape[0] + hit_slots5)
+        + nbytes(it5[torch.unique(inst5)]), slots5.shape[0] * INST_XFORM_OPS)}
+    g24 = graph_ms(lambda: slot_fetch.fetch_geom_by_slot(sa5, slots5, inst5, it5))
+    b24 = bounds24["slot_fetch_inst"]
+    print(f"[24] slot_fetch_inst at metric 5's d = 1: events {times24['slot_fetch_inst'][0]:.5f} "
+          f"ms, graph {g24:.5f} ms, twin {times24['slot_fetch_inst'][1]:.4f} ms; bound "
+          f"{b24[0]:.5f} ms ({b24[1]}), unfused {b24[2]:.5f} ms, {b24[0] / g24:.3f} of the "
+          f"bound by graph")
+    extra_res["slot_fetch_inst"] = {"graph_ms": g24}
+
+    # the instanced golden's setup at 512x512, kernels against twins
+    r, kw = golden_setup("instanced", 512)
+    p24 = r._params(kw["max_depth"])
+    cfg24 = pf.make_config(r._dev, p24)
+    n24 = r.width * r.height
+    sv24, usv24 = pf.pack_scalars(p24, n24, dev)
+    n_spp24 = torch.full((n24,), 3, dtype=torch.int64, device=dev)
+    res24 = compare_stages("[24] instanced", cfg24, pf, kernels, sv24, usv24, r._dev, n_spp24,
+                           stage_tracer(pf, cfg24, r._dev, n24), depths=(0, 1))
+    print(f"[24] instanced setup (lobes {cfg24.lobes_on}, variant "
+          f"{kernels.mega_variant(cfg24)}, {r.width}x{r.height}, "
+          f"{r._dev['clusters']['n_instances']} placements)")
+    for k in ("raygen", "final_resolve", "mega"):
+        results[k] = max(results[k], res24[k])
+
+    # the instanced golden through the user entry point
+    r, kw = golden_setup("instanced")
+    _build.LAUNCHES.clear()
+    r.render(**kw)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    score_golden("[24]", "instanced", r.get_layer("beauty"), counts, (r.height, r.width, 3))
+    want24 = kw["n_samples"] * kw["max_depth"]
+    if counts.get("slot_fetch_inst", 0) != want24 or counts.get("slot_fetch", 0):
+        raise AssertionError(f"[24] golden instanced: launches {counts}, the instanced fetch "
+                             f"expected {want24} times and the plain one none")
+    print("[24] the port scores 18 of the 20 goldens (left: hero, ibl)")
+
+    # metric 5 (bench.py _bench_tiles): 2 warm-up spp, then 2 spp timed
+    pv5, s5, launches24 = timed_metric(r5, 2, 5, _build)
+    beauty5 = r5.get_layer("beauty")
+    if not (np.isfinite(beauty5).all() and 0.01 < beauty5.mean() < 100.0):
+        raise AssertionError(f"[24] metric-5 image is off: mean {beauty5.mean()}")
+    if launches24.get("slot_fetch_inst", 0) != 2 * 5 or launches24.get("slot_fetch", 0) \
+            or launches24.get("clustered_closest", 0) != 2 * 5:
+        raise AssertionError(f"[24] metric 5 launches {launches24}")
+    twins = {k: v for k, v in launches24.items() if k.endswith("_twin") and v}
+    if twins:
+        raise AssertionError(f"twins ran on the CUDA main path: {twins}")
+    print(json.dumps({
+        "metric": "instanced_tiles_10.4M_512x288_2spp_depth5",
+        "mpath_vertices_per_s": pv5 / s5 / 1e6,
+        "path_vertices": pv5,
+        "seconds": s5,
+        "blas_build_s": build24["bvh"],
+        "hierarchy_s": build24["hierarchy"],
+        "set_scene_s": upload24,
+        "beauty_mean": float(beauty5.mean()),
+        "card": card,
+        "launches": launches24,
+    }))
+    profile_busy("[24]", "metric 5", r5, 5, start_tracer=False)
+    phase_done(24, t0)
+
     # ---- 6: records. dense_closest and mega are timed on metric 1's path
     # (its d = 1 bounce), dense_any on the wavefront metric's, the resident
     # kernels on metric 2's bounce rays with the gate on (launches: the
@@ -2313,7 +2531,13 @@ def main() -> None:
          bounds20, launches20["transmission_rough"]),
         ("mega_tex", "shade.cu", "fredholm_tpu/fused/kernels.py:47", "mega_tex", times23,
          bounds23, launches23["texture"]),
+        ("slot_fetch_inst", "slot_fetch.cu",
+         "fredholm_tpu/fused/slot_fetch.py:76 + fredholm_tpu/fused/pt_fused.py:1237",
+         "slot_fetch_inst", times24, bounds24, launches24),
     ]
+    for k, g in graph_short.items():
+        extra_res[k] = {"graph_ms": g, "graph_shapes": "metric 2's d = 1" if k == "slot_fetch"
+                        else "metric 1"}
     kern_json = [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
          "launches": int(lch.get(key, 0)), "max_abs_err": results[name],

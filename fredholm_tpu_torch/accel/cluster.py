@@ -1,6 +1,6 @@
 """Triangle cluster hierarchy (host numpy).
 
-Port of fredholm_tpu/accel/cluster.py:33-495: the SAH BVH is cut into
+Port of fredholm_tpu/accel/cluster.py:33-545: the SAH BVH is cut into
 
   instance  ->  supercluster (<= 128 clusters)  ->  cluster (<= 128 tris)
             ->  16-triangle group
@@ -8,8 +8,7 @@ Port of fredholm_tpu/accel/cluster.py:33-495: the SAH BVH is cut into
 and laid out as flat tables the clustered traversal kernels walk
 (accel/clustered.py, csrc/clustered.cu). The tables are byte-equal to
 the reference's for the same BVH, so hit slots (cid * 128 + k) mean the
-same in both packages. The refit cache and the O(I) instance update of
-the reference are not ported.
+same in both packages. The refit cache of the reference is not ported.
 """
 
 from __future__ import annotations
@@ -260,10 +259,8 @@ class TLAS:
         return int(self.sc_mcount.shape[0])
 
 
-def build_tlas(blas_list: Sequence[Hierarchy],
-               instances: Sequence[Tuple[int, np.ndarray]]) -> TLAS:
-    """instances: (blas index, object-to-world 4x4) pairs."""
-    assert blas_list and instances
+def _bases(blas_list: Sequence[Hierarchy]):
+    """Each BLAS's first supercluster, cluster and region in the TLAS."""
     nb = len(blas_list)
     sc_base = np.zeros(nb, np.int64)
     cl_base = np.zeros(nb, np.int64)
@@ -272,6 +269,37 @@ def build_tlas(blas_list: Sequence[Hierarchy],
         sc_base[b] = sc_base[b - 1] + blas_list[b - 1].n_superclusters
         cl_base[b] = cl_base[b - 1] + blas_list[b - 1].n_clusters
         reg_base[b] = reg_base[b - 1] + n_regions(blas_list[b - 1].n_superclusters)
+    return sc_base, cl_base, reg_base
+
+
+def _instance_arrays(blas_list: Sequence[Hierarchy],
+                     instances: Sequence[Tuple[int, np.ndarray]]):
+    """The TLAS's per-instance arrays (inst_aabb, inst_minv, inst_sc) and
+    whether every transform is the identity (cluster.py:463-481)."""
+    sc_base, _, reg_base = _bases(blas_list)
+    n_i = len(instances)
+    inst_aabb = np.zeros((6, n_i), np.float32)
+    inst_minv = np.zeros((12, n_i), np.float32)
+    inst_sc = np.zeros((3, n_i), np.int32)
+    identity = True
+    for i, (b, m4) in enumerate(instances):
+        h = blas_list[b]
+        m4 = np.asarray(m4, np.float32)
+        lo, hi = _transform_aabb(h.root_lo, h.root_hi, m4)
+        inst_aabb[0:3, i] = lo
+        inst_aabb[3:6, i] = hi
+        inst_minv[:, i] = np.linalg.inv(m4)[:3, :].reshape(-1)
+        inst_sc[:, i] = (sc_base[b], h.n_superclusters, reg_base[b])
+        if not np.allclose(m4, np.eye(4), atol=1e-7):
+            identity = False
+    return inst_aabb, inst_minv, inst_sc, identity
+
+
+def build_tlas(blas_list: Sequence[Hierarchy],
+               instances: Sequence[Tuple[int, np.ndarray]]) -> TLAS:
+    """instances: (blas index, object-to-world 4x4) pairs."""
+    assert blas_list and instances
+    sc_base, cl_base, reg_base = _bases(blas_list)
 
     metas = []
     for b, h in enumerate(blas_list):
@@ -288,21 +316,7 @@ def build_tlas(blas_list: Sequence[Hierarchy],
                 h.reg_aabb[:, o * rb:(o + 1) * rb]
             off += rb
 
-    n_i = len(instances)
-    inst_aabb = np.zeros((6, n_i), np.float32)
-    inst_minv = np.zeros((12, n_i), np.float32)
-    inst_sc = np.zeros((3, n_i), np.int32)
-    identity = True
-    for i, (b, m4) in enumerate(instances):
-        h = blas_list[b]
-        m4 = np.asarray(m4, np.float32)
-        lo, hi = _transform_aabb(h.root_lo, h.root_hi, m4)
-        inst_aabb[0:3, i] = lo
-        inst_aabb[3:6, i] = hi
-        inst_minv[:, i] = np.linalg.inv(m4)[:3, :].reshape(-1)
-        inst_sc[:, i] = (sc_base[b], h.n_superclusters, reg_base[b])
-        if not np.allclose(m4, np.eye(4), atol=1e-7):
-            identity = False
+    inst_aabb, inst_minv, inst_sc, identity = _instance_arrays(blas_list, instances)
     return TLAS(
         sc_aabb=np.concatenate([h.sc_aabb for h in blas_list], axis=1),
         sc_mcount=np.concatenate([h.sc_mcount for h in blas_list]),
@@ -317,3 +331,15 @@ def build_tlas(blas_list: Sequence[Hierarchy],
         inst_identity=identity,
         reg_aabb=reg_aabb,
     )
+
+
+def update_tlas_instances(tlas: TLAS, blas_list: Sequence[Hierarchy],
+                          instances: Sequence[Tuple[int, np.ndarray]]) -> TLAS:
+    """O(I) instance move (cluster.py:498-545): a TLAS with new
+    per-instance arrays over the same geometry tables (shared, not
+    copied). accel/clustered.py `move_instances` then refreshes only the
+    instance entries and the root box of the prepared tables."""
+    assert len(instances) == tlas.n_instances
+    inst_aabb, inst_minv, inst_sc, identity = _instance_arrays(blas_list, instances)
+    return dataclasses.replace(tlas, inst_aabb=inst_aabb, inst_minv=inst_minv, inst_sc=inst_sc,
+                               inst_identity=identity)

@@ -118,14 +118,46 @@ def card_records(tlas: TLAS) -> Dict[str, np.ndarray]:
     tri[:, 4:7] = blocks[3:6].T
     tri[:, 8:11] = blocks[6:9].T
     return {
-        "inst_rec": _box_records(tlas.inst_aabb[0:3], tlas.inst_sc[0].astype(np.int32),
-                                 tlas.inst_aabb[3:6], tlas.inst_sc[1].astype(np.int32)),
-        "inst_xf": np.ascontiguousarray(tlas.inst_minv.T, dtype=np.float32),
+        **_instance_records(tlas),
         "sc_rec": _box_records(tlas.sc_aabb[0:3], mcount, tlas.sc_aabb[3:6], first),
         "cl_rec": _box_records(cl[0:3], cl[6], cl[3:6], cl[7]),
         "grp_rec": _box_records(blocks[10:13, gcols], zeros, blocks[13:16, gcols], zeros),
         "tri_rec": tri,
     }
+
+
+def _instance_records(tlas: TLAS) -> Dict[str, np.ndarray]:
+    """inst_rec and inst_xf of `card_records`."""
+    return {
+        "inst_rec": _box_records(tlas.inst_aabb[0:3], tlas.inst_sc[0].astype(np.int32),
+                                 tlas.inst_aabb[3:6], tlas.inst_sc[1].astype(np.int32)),
+        "inst_xf": np.ascontiguousarray(tlas.inst_minv.T, dtype=np.float32),
+    }
+
+
+def _root_aabb(inst_aabb: np.ndarray) -> np.ndarray:
+    """World-space union of the instance AABBs: every lane's initial best t
+    clamps to its exit distance from this box."""
+    root = np.zeros((6, 8), np.float32)
+    root[0:3, 0] = np.asarray(inst_aabb[0:3]).min(axis=1)
+    root[3:6, 0] = np.asarray(inst_aabb[3:6]).max(axis=1)
+    return root
+
+
+def move_instances(c: Dict, tlas: TLAS) -> Dict:
+    """Prepared tables c with the instance entries of tlas (a TLAS over the
+    same geometry, accel/cluster.py `update_tlas_instances`): inst_aabb,
+    inst_minv, inst_sc, their records, the root box and the identity flag
+    are uploaded anew; every other table is c's own tensor."""
+    device = c["inst_rec"].device
+    tables = {"root_aabb": _root_aabb(tlas.inst_aabb), "inst_aabb": tlas.inst_aabb,
+              "inst_minv": tlas.inst_minv, "inst_sc": tlas.inst_sc, **_instance_records(tlas)}
+    out = dict(c)
+    out.update({k: torch.tensor(np.ascontiguousarray(v), device=device)
+                for k, v in tables.items()})
+    _check_tables(out)
+    out["identity"] = bool(tlas.inst_identity)
+    return out
 
 
 def prepare_clustered(tlas: TLAS, device) -> Dict:
@@ -138,13 +170,8 @@ def prepare_clustered(tlas: TLAS, device) -> Dict:
             "reference leaves the clustered path there, and so does the port")
     if tlas.blocks.shape[1] > MAX_SLOTS:
         raise NotImplementedError(f"more than {MAX_SLOTS} triangle slots")
-    # world-space union of the instance AABBs: every lane's initial best t
-    # clamps to its exit distance from this box
-    root = np.zeros((6, 8), np.float32)
-    root[0:3, 0] = np.asarray(tlas.inst_aabb[0:3]).min(axis=1)
-    root[3:6, 0] = np.asarray(tlas.inst_aabb[3:6]).max(axis=1)
-    tables = {"root_aabb": root, **{k: getattr(tlas, k) for k in _TABLE_KEYS[1:]},
-              **card_records(tlas)}
+    tables = {"root_aabb": _root_aabb(tlas.inst_aabb),
+              **{k: getattr(tlas, k) for k in _TABLE_KEYS[1:]}, **card_records(tlas)}
     out = {k: torch.tensor(np.ascontiguousarray(v), device=device) for k, v in tables.items()}
     _check_tables(out)
     out["identity"] = bool(tlas.inst_identity)

@@ -1054,9 +1054,10 @@ def trace_stage(cfg: FusedConfig, dev: Dict, rays, n: int, n_blocks: int,
     """The traces of one stage input: any-hit over the first n_occ blocks,
     closest hit over the rest of the first n_blocks, and (clustered scenes)
     the slot fetch of the closest hits where the shading reads them: the
-    "rad" block, and the light block of scenes with emissive faces. Hits
-    without slots (B7) leave the shading to read geometry by prim from
-    fused_table."""
+    "rad" block, and the light block of scenes with emissive faces (moved
+    into world space by the hits' instances in instanced scenes). Hits
+    without slots (B7, identity scenes only) leave the shading to read
+    geometry by prim from fused_table."""
     from ..experimental import compact as cp
     from .slot_fetch import fetch_geom_by_slot
 
@@ -1067,7 +1068,9 @@ def trace_stage(cfg: FusedConfig, dev: Dict, rays, n: int, n_blocks: int,
     hits = trace(dev, rays, n_occ, n_cl, n, **kw) if n_cl else None
     geom = None
     if hits is not None and "slot" in hits and "slot_attrs" in dev:
-        geom = fetch_geom_by_slot(dev["slot_attrs"], hits["slot"])
+        # instanced scenes: the planes move into world space in the fetch
+        inst = hits["inst"] if "inst_table" in dev else None
+        geom = fetch_geom_by_slot(dev["slot_attrs"], hits["slot"], inst, dev.get("inst_table"))
     return Traced(hits, occ, geom)
 
 

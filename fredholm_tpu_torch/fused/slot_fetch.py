@@ -12,6 +12,13 @@ area, mat_id), so the planes take the place of the fused_table row
 gather; the material stage is unchanged. `fetch_geom_by_slot` launches
 csrc/slot_fetch.cu on CUDA tensors (or raises) and runs the twin on CPU
 tensors.
+
+Instanced scenes keep object-space geometry in slot_attrs; given the hits'
+instance ids and the scene's inst_table [I, 24] (scene/device.py
+`instance_table`), the fetch also moves each lane's attributes into world
+space (fredholm_tpu/fused/pt_fused.py:1237 `_xform_attrs_cols`, which the
+reference runs after its fetch): `k_slot_fetch_inst`, twin
+`fetch_inst_twin`.
 """
 
 from __future__ import annotations
@@ -59,8 +66,49 @@ def fetch_twin(slot_attrs: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return torch.where(hit[None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
-def fetch_geom_by_slot(slot_attrs: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """Geometry-attribute planes [26, N] for hit slots [N] (-1 = miss)."""
+def xform_twin(geom: torch.Tensor, inst: torch.Tensor, inst_table: torch.Tensor) -> torch.Tensor:
+    """Object-space planes [26, N] -> world space by each lane's instance
+    row (pt_fused.py:1237-1269, in its order of operations): vertices by
+    the affine rows, normals by the normal matrix then times 1 / sqrt(
+    max(|n|^2, 1e-24)), the area from the moved vertices. Every lane, a
+    miss (inst 0, zero planes) included."""
+    rows = inst_table[torch.clamp(inst.to(torch.int64), 0, inst_table.shape[0] - 1)]
+    r = [rows[:, k] for k in range(21)]
+    g = list(geom.unbind(0))
+    for b in (0, 3, 6):
+        x, y, z = g[b], g[b + 1], g[b + 2]
+        for k in range(3):
+            g[b + k] = r[4 * k] * x + r[4 * k + 1] * y + r[4 * k + 2] * z + r[4 * k + 3]
+    for b in (9, 12, 15):
+        x, y, z = g[b], g[b + 1], g[b + 2]
+        nx, ny, nz = (r[12 + 3 * k] * x + r[13 + 3 * k] * y + r[14 + 3 * k] * z
+                      for k in range(3))
+        s = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-24))
+        g[b], g[b + 1], g[b + 2] = nx * s, ny * s, nz * s
+    e1 = [g[3 + k] - g[k] for k in range(3)]
+    e2 = [g[6 + k] - g[k] for k in range(3)]
+    cx = e1[1] * e2[2] - e1[2] * e2[1]
+    cy = e1[2] * e2[0] - e1[0] * e2[2]
+    cz = e1[0] * e2[1] - e1[1] * e2[0]
+    g[24] = 0.5 * torch.sqrt(cx * cx + cy * cy + cz * cz)
+    return torch.stack(g)
+
+
+def fetch_inst_twin(slot_attrs: torch.Tensor, slot: torch.Tensor, inst: torch.Tensor,
+                    inst_table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch instanced fetch: [26, N] float32, world space."""
+    _build.LAUNCHES["slot_fetch_inst_twin"] += 1
+    s = slot.to(torch.int64)
+    hit = (s >= 0) & (s < slot_attrs.shape[1])
+    rows = slot_attrs[:A_USED, torch.clamp(s, 0, slot_attrs.shape[1] - 1)]
+    geom = torch.where(hit[None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return xform_twin(geom, inst, inst_table)
+
+
+def fetch_geom_by_slot(slot_attrs: torch.Tensor, slot: torch.Tensor, inst: torch.Tensor = None,
+                       inst_table: torch.Tensor = None) -> torch.Tensor:
+    """Geometry-attribute planes [26, N] for hit slots [N] (-1 = miss); in
+    world space by the hits' instances [N] where inst_table is given."""
     if slot_attrs.dtype != torch.float32 or slot_attrs.dim() != 2 \
             or slot_attrs.shape[0] != SLOT_ROWS or not slot_attrs.is_contiguous():
         raise ValueError(f"slot_attrs must be contiguous float32 [{SLOT_ROWS}, S]")
@@ -68,13 +116,32 @@ def fetch_geom_by_slot(slot_attrs: torch.Tensor, slot: torch.Tensor) -> torch.Te
         raise ValueError("slot must be a contiguous int32 [N]")
     if slot.device != slot_attrs.device:
         raise ValueError("slot and slot_attrs on different devices")
+    if inst_table is not None:
+        if inst_table.dtype != torch.float32 or inst_table.dim() != 2 \
+                or inst_table.shape[1] != 24 or inst_table.shape[0] < 1 \
+                or not inst_table.is_contiguous():
+            raise ValueError("inst_table must be a contiguous float32 [I >= 1, 24]")
+        if inst is None or inst.dtype != torch.int32 or inst.shape != slot.shape \
+                or not inst.is_contiguous():
+            raise ValueError("inst must be a contiguous int32 tensor shaped as slot")
+        if inst.device != slot.device or inst_table.device != slot.device:
+            raise ValueError("inst, inst_table and slot on different devices")
     if slot.device.type == "cpu":
+        if inst_table is not None:
+            return fetch_inst_twin(slot_attrs, slot, inst, inst_table)
         return fetch_twin(slot_attrs, slot)
     if slot.device.type != "cuda":
         raise NotImplementedError(f"no slot-fetch kernel for device {slot.device}")
     n = slot.shape[0]
     out = torch.empty((A_USED, n), dtype=torch.float32, device=slot.device)
     stream = torch.cuda.current_stream(slot.device).cuda_stream
+    if inst_table is not None:
+        err = _build.lib().fh_slot_fetch_inst(
+            slot.data_ptr(), inst.data_ptr(), n, slot_attrs.data_ptr(), slot_attrs.shape[1],
+            inst_table.data_ptr(), inst_table.shape[0], out.data_ptr(), stream)
+        _build.check(err, "slot_fetch_inst")
+        _build.LAUNCHES["slot_fetch_inst"] += 1
+        return out
     err = _build.lib().fh_slot_fetch(slot.data_ptr(), n, slot_attrs.data_ptr(),
                                      slot_attrs.shape[1], out.data_ptr(), stream)
     _build.check(err, "slot_fetch")

@@ -271,6 +271,12 @@ def render_sample(dev: Dict, params: Dict, n_spp) -> Dict:
     position, normal, depth, texcoord, albedo), each [N, ...], NaN/Inf
     scrubbed like pt.cu:469-478, and the counters n_path_vertices and
     n_lane_slots (float32 scalars)."""
+    if "inst_table" in dev:
+        raise NotImplementedError(
+            "the wavefront integrator has no instanced scenes yet (the reference's "
+            "_apply_inst_points, _apply_inst_normals and _gather_inst_rows, pt.py, are not "
+            "ported); instanced scenes render through the fused pipeline: keep use_fused, the "
+            "sobol_cmj sampler, no thin film and <= 16 area lights")
     if dev.get("tex_kinds"):
         raise NotImplementedError(
             f"the wavefront integrator has no textures yet (the textured "

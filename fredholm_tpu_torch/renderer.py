@@ -8,7 +8,8 @@ unless the caller asks for the CPU. On a CUDA device every kernel stage
 runs a hand-written kernel; on the CPU the same stages run their plain
 PyTorch twins. Scenes of at most 1024 faces trace densely; larger ones
 through the cluster hierarchy (up to 4096 superclusters, as the
-reference).
+reference), as do instanced scenes (InstancedScene: one shared BLAS per
+submesh, placements moved by `set_instance_transforms`) of any size.
 
 Two integrators, routed as the reference's `_config` routes them
 (renderer.py:523-531): the fused pipeline (fused/pt_fused.py) by default,
@@ -16,7 +17,8 @@ the wavefront integrator (integrator/pt.py `render_sample`) where
 `use_fused` is False, `sampler_mode` is "bluenoise", a material has a
 thin film, or the scene has more than 16 area lights. Textured scenes
 render through the fused pipeline only: routed to the wavefront, they
-raise NotImplementedError, as do scenes with alpha cutout.
+raise NotImplementedError, as do instanced scenes and scenes with alpha
+cutout.
 
 Left out on purpose (TPU scheduling devices that only re-order work):
 row bands, spp chunking, pixel swizzle and the (w*h) % 128 gate.
@@ -24,7 +26,7 @@ row bands, spp chunking, pixel swizzle and the (w*h) % 128 gate.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -34,8 +36,9 @@ from .experimental import compact
 from .fused.pt_fused import MAX_KERNEL_LIGHTS, SKY_CONSTANT, SKY_HOSEK
 from .integrator.pt import make_layers, render_progressive
 from .sampling.sampler import MODE_DEFAULT
-from .scene.device import build_device_scene
-from .scene.types import Scene
+from .scene.device import (build_device_scene, build_instanced_device_scene,
+                           update_instance_transforms)
+from .scene.types import InstancedScene, Scene
 from .sky import hosek as hosek_mod
 
 
@@ -120,14 +123,31 @@ class Renderer:
 
     # -- scene / sky --------------------------------------------------------
 
-    def set_scene(self, scene: Scene):
+    def set_scene(self, scene: Union[Scene, InstancedScene]):
+        """A flattened Scene, or an InstancedScene (renderer.py:288-297),
+        which always traces through the cluster hierarchy and takes its
+        materials, textures and camera from its base scene."""
         _check_envelope(scene)
-        self._dev = build_device_scene(scene, self.device)
+        if isinstance(scene, InstancedScene):
+            self._dev = build_instanced_device_scene(scene, self.device)
+        else:
+            self._dev = build_device_scene(scene, self.device)
         self._lobes = _scene_lobes(scene)
         self.scene = scene
         # a loaded scene's camera (renderer.py:314-318)
         if scene.has_camera_transform and scene.camera_transform is not None:
             self.camera.set_transform(scene.camera_transform)
+        self.init_render_states()
+
+    def set_instance_transforms(self, transforms):
+        """Move an InstancedScene's placements, one 4x4 each, in order
+        (renderer.py:321-330): the TLAS's instance entries, the shading
+        transforms and the lights are rebuilt, the geometry stays on the
+        device; the accumulation restarts."""
+        if self._dev is None or "inst_table" not in self._dev:
+            raise RuntimeError("set_instance_transforms needs an InstancedScene")
+        self._dev = update_instance_transforms(self._dev, transforms)
+        self.scene = self._dev["_host"]["scene"]
         self.init_render_states()
 
     def set_directional_light(self, le, direction, angle: float = 0.0):

@@ -1,7 +1,7 @@
 """Host scene -> device tensors.
 
-Port of fredholm_tpu/scene/device.py:84-189 (without the skip-link BVH
-and instanced scenes) plus the fused table builders of
+Port of fredholm_tpu/scene/device.py:84-189 and :263-481 (without the
+skip-link BVH and the refit) plus the fused table builders of
 fredholm_tpu/fused/pt_fused.py:139-234. Tables are assembled in numpy,
 byte-identical to the reference's numpy path, then uploaded once:
 
@@ -33,9 +33,24 @@ builds slot_attrs only above 2048 faces (a TPU gather cost); its own
 test shows the slot fetch and the row gather bit-identical, so the port
 builds it for every clustered scene.
 
-`dev_from_reference` carries the reference package's own dense-scene
-tables across, so tests can run both packages on literally the same
-inputs.
+Instanced scenes (`build_instanced_device_scene`, an InstancedScene) are
+always clustered: one BLAS per referenced submesh, shared by all of its
+placements, under a TLAS of the placements. fused_table, slot_attrs and
+the face SoA stay in OBJECT space, indexed by the base scene's face id;
+the lights are world space, one row for every placed copy of an emissive
+face; and
+
+  inst_table       [I, 24]        f32  a placement's object-to-world
+                                       affine rows (cols 0-11) and normal
+                                       matrix (12-20), which the slot
+                                       fetch applies to each hit
+
+`update_instance_transforms` moves the placements: the TLAS's instance
+entries, inst_table and the lights are rebuilt, the geometry stays.
+
+`dev_from_reference` carries the reference package's own tables of a
+dense or an instanced scene across, so tests can run both packages on
+literally the same inputs.
 """
 
 from __future__ import annotations
@@ -46,12 +61,12 @@ import numpy as np
 import torch
 
 from ..accel.bvh import build_bvh
-from ..accel.cluster import TLAS, build_tlas, extract_hierarchy
-from ..accel.clustered import prepare_clustered
+from ..accel.cluster import SC_GROUP, TLAS, build_tlas, extract_hierarchy, update_tlas_instances
+from ..accel.clustered import move_instances, prepare_clustered
 from ..accel.dense import MAX_FACES as DENSE_MAX_FACES
 from ..fused.slot_fetch import build_slot_attrs
 from .texture import pack_textures
-from .types import Scene, materials_to_soa
+from .types import InstancedScene, MeshInstance, Scene, materials_to_soa
 
 # the wavefront integrator's tables (module docstring)
 _WAVEFRONT_KEYS = (
@@ -330,12 +345,10 @@ _TRI_KEYS = ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")
 
 
 def dev_from_reference(np_dev: Dict, device) -> Dict:
-    """The reference's `build_device_scene` output of a dense scene (arrays
-    as numpy) -> the port's dev dict, on the same table bytes."""
-    tri = np.concatenate(
-        [np.asarray(np_dev["tri_soa"][k], np.float32).reshape(1, -1)
-         for k in _TRI_KEYS]
-    )
+    """The reference's `build_device_scene` output of a dense scene, or its
+    `build_instanced_device_scene` output of an instanced one (arrays as
+    numpy) -> the port's dev dict, on the same table bytes. An instanced
+    dict carries no host state: it renders, but does not move."""
     # the reference's texture atlas where given (its "textures" entry),
     # else the fallback texture alone
     runs = np_dev["textures"]["runs"] if "textures" in np_dev else pack_textures([])["runs"]
@@ -343,10 +356,177 @@ def dev_from_reference(np_dev: Dict, device) -> Dict:
         "fused_table": np.asarray(np_dev["fused_table"], np.float32),
         "fused_mat_table": np.asarray(np_dev["fused_mat_table"], np.float32),
         "light_table": np.asarray(np_dev["light_table"], np.float32),
-        "tri_soa": tri,
         "tex_runs": np.asarray(runs, np.uint32).view(np.int32),
         **{k: np_dev[k] for k in _WAVEFRONT_KEYS},
     }
+    tlas = None
+    if "inst_table" in np_dev:
+        tlas = _tlas_from_reference(np_dev["clusters"], bool(np_dev["_inst_identity"]))
+        tables["inst_table"] = np.asarray(np_dev["inst_table"], np.float32)
+        tables["slot_attrs"] = (np.asarray(np_dev["slot_attrs"], np.float32)
+                                if "slot_attrs" in np_dev
+                                else build_slot_attrs(np_dev, tlas.blocks[9]))
+    else:
+        tables["tri_soa"] = np.concatenate(
+            [np.asarray(np_dev["tri_soa"][k], np.float32).reshape(1, -1) for k in _TRI_KEYS])
     dev = _upload(tables, np_dev["n_lights"], np_dev["n_faces"], device)
     dev["tex_kinds"] = tex_kinds(np_dev["materials"])
+    if tlas is not None:
+        dev["clusters"] = prepare_clustered(tlas, device)
     return dev
+
+
+def _tlas_from_reference(c: Dict, identity: bool) -> TLAS:
+    """The TLAS behind the reference's prepared clustered tables
+    (pallas_clustered.py `prepare_clustered`; its cl_meta may carry tail
+    padding)."""
+    n_sc = np.asarray(c["sc_mcount"]).shape[0]
+    return TLAS(**{k: np.asarray(c[k]) for k in (
+        "sc_aabb", "sc_mcount", "sc_order", "sc_key", "blocks", "inst_aabb", "inst_minv",
+        "inst_sc", "reg_aabb")},
+        cl_meta=np.ascontiguousarray(np.asarray(c["cl_meta"])[:, :n_sc * SC_GROUP]),
+        inst_identity=identity)
+
+
+# ---------------------------------------------------------------------------
+# instanced scenes: one BLAS per referenced submesh, shared by its placements
+
+
+def instance_table(instances) -> np.ndarray:
+    """[I, 24] float32 shade-time transforms (device.py:266-279): cols 0-11
+    the object-to-world affine rows, 12-20 the normal matrix (the inverse
+    transpose of the rotation part), the rest zero. instances: (blas index,
+    4x4) pairs."""
+    out = np.zeros((len(instances), 24), np.float32)
+    for i, (_, m4) in enumerate(instances):
+        m4 = np.asarray(m4, np.float64)
+        out[i, 0:12] = m4[:3, :].reshape(-1).astype(np.float32)
+        out[i, 12:21] = np.linalg.inv(m4[:3, :3]).T.reshape(-1).astype(np.float32)
+    return out
+
+
+def _instance_lights(iscene: InstancedScene, fd: Dict, mat_ids: np.ndarray):
+    """(world-space light SoA, light count): every placed copy of an
+    emissive face, in placement order (device.py:334-365)."""
+    base = iscene.base
+    emissive = base.emissive_faces()
+    lv, ln, luv, lm = [], [], [], []
+    for mi in iscene.instances:
+        off = int(base.submesh_offsets[mi.submesh])
+        cnt = int(base.submesh_n_faces[mi.submesh])
+        le_f = emissive[(emissive >= off) & (emissive < off + cnt)]
+        if len(le_f) == 0:
+            continue
+        m4 = np.asarray(mi.transform, np.float32)
+        r, t = m4[:3, :3], m4[:3, 3]
+        nrm = np.linalg.inv(m4[:3, :3]).T.astype(np.float32)
+        wv = np.einsum("ij,fkj->fki", r, fd["verts"][le_f]) + t
+        wn = np.einsum("ij,fkj->fki", nrm, fd["normals"][le_f])
+        wn = wn / np.maximum(np.linalg.norm(wn, axis=-1, keepdims=True), 1e-12)
+        lv.append(wv.astype(np.float32))
+        ln.append(wn.astype(np.float32))
+        luv.append(fd["uvs"][le_f])
+        lm.append(mat_ids[le_f])
+
+    def cat(xs, shape, dtype):
+        return np.concatenate(xs) if xs else np.zeros(shape, dtype)
+
+    lsoa = _light_soa(cat(lv, (0, 3, 3), np.float32), cat(ln, (0, 3, 3), np.float32),
+                      cat(luv, (0, 3, 2), np.float32), cat(lm, (0,), np.int32))
+    return lsoa, sum(len(a) for a in lv)
+
+
+def build_instanced_host_tables(iscene: InstancedScene) -> Dict:
+    """numpy tables of an instanced scene (device.py:282-406): those of
+    `build_host_tables` for a clustered scene (object-space geometry, the
+    tlas, slot_attrs) plus inst_table, and under "_host" what a move needs
+    (the BLAS list, the submesh -> BLAS map, the object-space faces, the
+    materials)."""
+    if not iscene.is_valid():
+        raise ValueError("invalid instanced scene")
+    base = iscene.base
+    fd = world_face_data(base)  # base transforms are normally identity
+    vw = fd["verts"]
+    v0, e1, e2 = vw[:, 0], vw[:, 1] - vw[:, 0], vw[:, 2] - vw[:, 0]
+    mats = materials_to_soa(base.materials)
+    n_mats = len(base.materials) if base.materials else 1
+    mat_ids = np.clip(base.material_ids, 0, n_mats - 1).astype(np.int32)
+
+    blas_list, blas_of_submesh = [], {}
+    for s in sorted({mi.submesh for mi in iscene.instances}):
+        off, cnt = int(base.submesh_offsets[s]), int(base.submesh_n_faces[s])
+        sl = slice(off, off + cnt)
+        lo = np.minimum(np.minimum(v0[sl], v0[sl] + e1[sl]), v0[sl] + e2[sl])
+        hi = np.maximum(np.maximum(v0[sl], v0[sl] + e1[sl]), v0[sl] + e2[sl])
+        blas_of_submesh[s] = len(blas_list)
+        blas_list.append(extract_hierarchy(build_bvh(lo, hi), v0[sl], e1[sl], e2[sl],
+                                           prim_ids=np.arange(off, off + cnt, dtype=np.int64)))
+    instances = [(blas_of_submesh[mi.submesh], np.asarray(mi.transform, np.float32))
+                 for mi in iscene.instances]
+    tlas = build_tlas(blas_list, instances)
+    lsoa, n_lights = _instance_lights(iscene, fd, mat_ids)
+    tex = pack_textures(base.textures)
+    np_dev = {
+        "face_verts": fd["verts"],
+        "face_normals": fd["normals"],
+        "face_uvs": fd["uvs"],
+        "face_mat": mat_ids,
+        "materials": mats,
+        "tex_header": tex["header"],
+        **lsoa,
+    }
+    return {
+        "fused_table": build_fused_table(np_dev),
+        "fused_mat_table": build_fused_mat_table(np_dev),
+        "light_table": build_light_table(np_dev),
+        "tex_runs": tex["runs"].view(np.int32),
+        **{k: np_dev[k] for k in _WAVEFRONT_KEYS},
+        "inst_table": instance_table(instances),
+        "slot_attrs": build_slot_attrs(np_dev, tlas.blocks[9]),
+        "tlas": tlas,
+        "n_lights": n_lights,
+        "n_faces": int(base.n_faces()),
+        "tex_kinds": tex_kinds(mats),
+        "_host": {"scene": iscene, "blas_list": blas_list, "blas_of_submesh": blas_of_submesh,
+                  "fd": fd, "mat_ids": mat_ids, "materials": mats, "tlas": tlas},
+    }
+
+
+def build_instanced_device_scene(iscene: InstancedScene, device) -> Dict:
+    """InstancedScene -> dict of tensors on `device` (module docstring),
+    with the host state a move needs under "_host"."""
+    host = build_instanced_host_tables(iscene)
+    n_lights, n_faces = host.pop("n_lights"), host.pop("n_faces")
+    kinds, tlas, keep = host.pop("tex_kinds"), host.pop("tlas"), host.pop("_host")
+    dev = _upload(host, n_lights, n_faces, device)
+    dev["tex_kinds"] = kinds
+    dev["clusters"] = prepare_clustered(tlas, device)
+    dev["_host"] = keep
+    return dev
+
+
+def update_instance_transforms(dev: Dict, transforms) -> Dict:
+    """Move the placements of an instanced dev dict (device.py:409-481),
+    one 4x4 each, in order: the TLAS's instance entries and root box,
+    inst_table and the lights are rebuilt on the host and uploaded; the
+    geometry tables are dev's own tensors. Returns a new dict."""
+    host = dev["_host"]
+    iscene = host["scene"]
+    if len(transforms) != len(iscene.instances):
+        raise ValueError(f"{len(transforms)} transforms for {len(iscene.instances)} instances")
+    moved = InstancedScene(base=iscene.base, instances=[
+        MeshInstance(mi.submesh, np.asarray(m, np.float32))
+        for mi, m in zip(iscene.instances, transforms)])
+    instances = [(host["blas_of_submesh"][mi.submesh], mi.transform) for mi in moved.instances]
+    tlas = update_tlas_instances(host["tlas"], host["blas_list"], instances)
+    lsoa, n_lights = _instance_lights(moved, host["fd"], host["mat_ids"])
+    device = dev["fused_table"].device
+    new = dict(dev)
+    new["clusters"] = move_instances(dev["clusters"], tlas)
+    new["inst_table"] = _to_device(instance_table(instances), device)
+    new["light_table"] = _to_device(build_light_table({"materials": host["materials"], **lsoa}),
+                                    device)
+    new.update({k: _to_device(v, device) for k, v in lsoa.items()})
+    new["n_lights"] = int(n_lights)
+    new["_host"] = {**host, "scene": moved, "tlas": tlas}
+    return new

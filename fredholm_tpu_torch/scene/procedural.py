@@ -18,7 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .types import Material, Scene, TextureImage
+from .types import InstancedScene, Material, MeshInstance, Scene, TextureImage
 
 
 def _merge_mesh(
@@ -411,3 +411,57 @@ def emission_texture_test() -> Scene:
         Material(diffuse=0.0, specular=0.0, emission=6.0,
                  emission_color=(1.0, 0.9, 0.7), emission_texture_id=0),
     ], [tex])
+
+
+def instance_test(n: int = 4) -> InstancedScene:
+    """Small shared-BLAS instanced scene (instance_test.gltf analog,
+    controller.h:63): one sphere+pedestal mesh instanced in a ring."""
+    v, nn, t, f = uv_sphere([0.0, 0.5, 0.0], 0.5, n_theta=16, n_phi=32)
+    vq, nq, tq, fq = _quad([-0.55, 0, -0.55], [-0.55, 0, 0.55], [0.55, 0, 0.55],
+                           [0.55, 0, -0.55])
+    verts, norms, uvs, idxs, mids = _merge_mesh(
+        [v, vq], [nn, nq], [t, tq], [f, fq],
+        [np.zeros((len(f),), np.int32), np.ones((len(fq),), np.int32)],
+    )
+    n_faces = len(idxs)
+    base = Scene(
+        vertices=verts, normals=norms, texcoords=uvs, indices=idxs,
+        material_ids=mids, instance_ids=np.zeros((n_faces,), np.int32),
+        materials=[
+            Material(base_color=(0.8, 0.3, 0.2), specular=0.5, specular_roughness=0.2),
+            Material(base_color=(0.6, 0.6, 0.6), specular=0.0),
+        ],
+        transforms=np.eye(4, dtype=np.float32)[None],
+        submesh_offsets=[0], submesh_n_faces=[n_faces],
+    )
+    instances = []
+    for k in range(n):
+        a = 2.0 * np.pi * k / n
+        m = np.eye(4, dtype=np.float32)
+        m[0, 3] = 2.0 * np.cos(a)
+        m[2, 3] = 2.0 * np.sin(a)
+        instances.append(MeshInstance(0, m))
+    return InstancedScene(base=base, instances=instances)
+
+
+def instanced_tiles(grid: int = 4, tile_n: int = 570, size: float = 20.0) -> InstancedScene:
+    """>=10M-triangle scene (San Miguel 10M analog, controller.h:39): a
+    `grid` x `grid` sheet of displaced-terrain tile instances sharing one
+    ~2*tile_n^2-triangle BLAS. Defaults: 16 x 649,800 = 10.4M scene
+    triangles with 650k on the device."""
+    base = terrain(n=tile_n, size=size)
+    instances = []
+    half = (grid - 1) / 2.0
+    for i in range(grid):
+        for j in range(grid):
+            # 90-degree y rotations keep the heightfield a valid surface
+            # but break trivial coherence
+            k = (i + 2 * j) % 4
+            c, s = [(1, 0), (0, 1), (-1, 0), (0, -1)][k]
+            m = np.eye(4, dtype=np.float32)
+            m[0, 0], m[0, 2] = c, s
+            m[2, 0], m[2, 2] = -s, c
+            m[0, 3] = (i - half) * size
+            m[2, 3] = (j - half) * size
+            instances.append(MeshInstance(0, m))
+    return InstancedScene(base=base, instances=instances)

@@ -213,3 +213,56 @@ class Scene:
         )
         ids = np.clip(self.material_ids, 0, len(self.materials) - 1)
         return np.nonzero(emissive_mat[ids])[0]
+
+
+@dataclasses.dataclass
+class MeshInstance:
+    """One placement of a base-scene submesh (OptixInstance analog,
+    renderer.h:498-552): `submesh` indexes Scene.submesh_offsets,
+    `transform` is the object-to-world 4x4."""
+
+    submesh: int
+    transform: np.ndarray
+
+
+@dataclasses.dataclass
+class InstancedScene:
+    """Two-level scene: unique object-space geometry in `base`, placed by
+    `instances` (the IAS analog, renderer.h:434-552).
+
+    Device memory is O(unique geometry): each referenced submesh becomes
+    ONE BLAS shared by all its instances; rays are transformed into object
+    space per instance at trace time, and hit attributes are transformed
+    back to world space at shade time. Contrast with baking a Scene's
+    per-face instance_ids, which flattens every copy into world-space
+    faces.
+    """
+
+    base: Scene
+    instances: List[MeshInstance] = dataclasses.field(default_factory=list)
+
+    def is_valid(self) -> bool:
+        return (
+            self.base.is_valid()
+            and len(self.instances) > 0
+            and all(
+                0 <= i.submesh < len(self.base.submesh_offsets)
+                for i in self.instances
+            )
+        )
+
+    @property
+    def materials(self):
+        return self.base.materials
+
+    @property
+    def textures(self):
+        return self.base.textures
+
+    @property
+    def has_camera_transform(self):
+        return self.base.has_camera_transform
+
+    @property
+    def camera_transform(self):
+        return self.base.camera_transform
