@@ -306,17 +306,17 @@ def final_bytes(cfg, n, tables, occ_bytes, dense):
     """Bytes k_final (csrc/shade.cu `resolve_pending`) must move over n
     lanes: a lane reads its radiance (12 B), each NEE block's occlusion
     (occ_bytes: a dense trace's 4 B prim, a split any-hit trace's 1 B
-    bool) and pending radiance (12 B), the light block's direction and
-    origin (24 B) and occlusion, the pending wi.y, pdf and throughput
-    (20 B), and writes its radiance (12 B); with area lights also the
-    light block's barycentrics (8 B) and hit geometry: a dense scene's
+    bool) and pending radiance (12 B), the light block's direction (12 B)
+    and occlusion, the pending wi.y, pdf and throughput (20 B), and writes
+    its radiance (12 B); with area lights also the light block's origin
+    (12 B), barycentrics (8 B) and hit geometry: a dense scene's
     fused_table and material rows once each, a clustered one's 26 planes a
     lane. Not the whole state, pending and ray buffers."""
     nee = 1 + int(cfg.has_dl) + int(cfg.n_lights > 0)
-    per_lane = 12 + nee * (occ_bytes + 12) + 24 + occ_bytes + 20 + 12
+    per_lane = 12 + nee * (occ_bytes + 12) + 12 + occ_bytes + 20 + 12
     once = 0
     if cfg.n_lights > 0:
-        per_lane += 8 + (0 if dense else 4 * 26)
+        per_lane += 12 + 8 + (0 if dense else 4 * 26)
         once = nbytes(tables["fused_mat_table"]) + (nbytes(tables["fused_table"]) if dense else 0)
     return n * per_lane + once
 

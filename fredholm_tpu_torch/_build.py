@@ -220,9 +220,6 @@ def load(lib_path: str):
     handle.fh_probe_fma.restype = i
     handle.fh_slot_fetch.argtypes = [vp, i, vp, ll, vp, vp]
     handle.fh_slot_fetch.restype = i
-    if hasattr(handle, "fh_slot_fetch_inst"):  # trees before the instanced fetch lack it
-        handle.fh_slot_fetch_inst.argtypes = [vp, vp, i, vp, ll, vp, i, vp, vp]
-        handle.fh_slot_fetch_inst.restype = i
     for name in ("fh_raygen", "fh_mega", "fh_final"):
         fn = getattr(handle, name)
         fn.argtypes = [ctypes.POINTER(ShadeArgs), vp]

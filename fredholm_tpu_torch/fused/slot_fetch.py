@@ -23,6 +23,7 @@ reference runs after its fetch): `k_slot_fetch_inst`, twin
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import numpy as np
@@ -136,7 +137,12 @@ def fetch_geom_by_slot(slot_attrs: torch.Tensor, slot: torch.Tensor, inst: torch
     out = torch.empty((A_USED, n), dtype=torch.float32, device=slot.device)
     stream = torch.cuda.current_stream(slot.device).cuda_stream
     if inst_table is not None:
-        err = _build.lib().fh_slot_fetch_inst(
+        # declared where it is called: `_build.load` also loads builds that lack it
+        fetch_inst = _build.lib().fh_slot_fetch_inst
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fetch_inst.argtypes = [vp, vp, i, vp, ctypes.c_longlong, vp, i, vp, vp]
+        fetch_inst.restype = i
+        err = fetch_inst(
             slot.data_ptr(), inst.data_ptr(), n, slot_attrs.data_ptr(), slot_attrs.shape[1],
             inst_table.data_ptr(), inst_table.shape[0], out.data_ptr(), stream)
         _build.check(err, "slot_fetch_inst")
