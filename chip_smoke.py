@@ -5,12 +5,15 @@ Run from the repository root:  python3 chip_smoke.py
 (`--against CSRC_DIR`, which may repeat, also times other trees' B1 and
 mega kernels in turns with this tree's: phases 1, 5 and 9, in phase 20
 mega's full variant and in phase 23 its textured one, of the trees that
-have them, in phase 13 their B7 and in phase 12 their B3; phase 1 says
-which kernels each tree compiles to the same machine code as this one,
-and phase 18 holds each tree's full variant to its twins beside this
-tree's. A tree's kernels take this tree's launch-argument struct,
-csrc/common.cuh `ShadeArgs`: an older tree's copy needs its struct
-brought level first, or shares its fields in order and ends sooner)
+have them, in phase 13 their B7, in phase 12 their B3, and in phases 9
+and 24 their slot fetches; phase 1 says which kernels each tree compiles
+to the same machine code as this one, and phase 18 holds each tree's
+full variant to its twins beside this tree's. A tree's kernels take this
+tree's launch-argument struct, csrc/common.cuh `ShadeArgs`: an older
+tree's copy needs its struct brought level first, or shares its fields
+in order and ends sooner. A tree whose slot fetch reads the plane-major
+table [32, S] of the trees before the row table gets a plane-major copy
+of each row table, wherever it runs)
 
 Phases, each printing before the next; any failure raises and the script
 exits non-zero without the final `ok` line:
@@ -52,14 +55,17 @@ exits non-zero without the final `ok` line:
    occlusion blocks) and on a two-instance non-identity TLAS with 2^18
    rays; the slot fetch bit-equal to its twin; the shading kernels vs
    their twins on the sweep's planes (Hosek sky, sun block, metal/specular
-   lobes, split occlusion, slot planes)
+   lobes, split occlusion, slot planes); the pipeline's planes are the
+   slot fetch's
 8. the goldens terrain_cluster, hosek_sun and metal_row through
    Renderer(device="cuda"), scored against tests/golden/*.npz
 9. metric 2: the hosek sweep at 512x288, 8 spp, depth 5 after 2 warm-up
    spp (bench.py:170-182), with its launch counts, and per-kernel times
    vs the plain twins at its shapes, beside each kernel's bound (the slot
-   fetch also by CUDA-graph replays), and the device's busy share from
-   torch.profiler; B4/B5's bounds counted with
+   fetch also by CUDA-graph replays, at d = 1 and at d = 0, there held to
+   its twin and the pipeline's planes first, and with --against trees in
+   turns with their slot fetches at both), and the device's busy share
+   from torch.profiler; B4/B5's bounds counted with
    the front-to-back walk and with the PR-4 table-order walk, and both
    variants timed in turns (CUDA events around the wrapper, and CUDA-graph
    replays) at the d = 1 blocks, the primaries and two floors (all lanes
@@ -156,11 +162,15 @@ exits non-zero without the final `ok` line:
     of one 649,800-triangle BLAS, 10.4M triangles) uploaded with the BLAS
     build's seconds; the instanced slot fetch (B6 with the hit-attribute
     transform) bit-equal to its twin on metric 5's d = 0 and d = 1 hits,
-    timed (CUDA events, a graph replay) beside its bound; compare_stages
+    its planes the pipeline's, timed at each (CUDA events, a graph replay)
+    beside its bound and in turns with each --against tree's; compare_stages
     on the instanced golden's setup at 512x512, d = 0 and 1; the instanced
     golden through Renderer(device="cuda"); metric 5 (512x288, Hosek sky
     and the sun, depth 5, 2 spp after 2 warm-up spp) with its launch
-    counts and the profiler's busy share and top kernels
+    counts and the profiler's busy share and top kernels; the instanced
+    fetch's device time a launch at each bounce of metric 5's pipeline
+    (torch.profiler) under this tree's and each --against tree's kernels;
+    with such trees metric 5 end to end in turns
 """
 
 from __future__ import annotations
@@ -639,6 +649,165 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
 
 
 THIS_TREE = "this tree"
+# the kernel libraries (`_build.load` handles) of --against trees whose
+# slot fetch reads the plane-major table [32, S], as trees before the row
+# table (fused/slot_fetch.py `slot_rows`) did
+PLANE_TABLE_LIBS = []
+
+
+def reads_rows(csrc_dir: str) -> bool:
+    """Whether a tree's slot fetch reads the row table [S, 32]."""
+    with open(os.path.join(csrc_dir, "slot_fetch.cu")) as f:
+        return "slot_rows" in f.read()
+
+
+def reads_planes(handle) -> bool:
+    """Whether a loaded library is one of PLANE_TABLE_LIBS."""
+    return any(handle is h for h in PLANE_TABLE_LIBS)
+
+
+def fetch_bound(slot, inst=None, inst_table=None):
+    """bound() of a slot fetch on these slots: every lane's slot (and
+    inst) read and 26 planes written, each distinct hit slot's 26 words
+    read once; the instanced fetch also the rows of the placements hit,
+    and INST_XFORM_OPS a lane."""
+    import torch
+
+    hit_slots = torch.unique(slot[slot >= 0]).numel()
+    n_bytes = nbytes(slot) + 4 * 26 * (slot.shape[0] + hit_slots)
+    if inst_table is None:
+        return bound(n_bytes, 0)
+    return bound(n_bytes + nbytes(inst, inst_table[torch.unique(inst)]),
+                 slot.shape[0] * INST_XFORM_OPS)
+
+
+def tree_fetch(handle, table, slot, inst=None, inst_table=None):
+    """One tree's slot fetch (B6, or with inst_table the instanced one)
+    through its library's C entry, on `table` in that tree's layout: the
+    plane-major [32, S] for a tree of PLANE_TABLE_LIBS, else the rows
+    [S, 32]. A comparison launch: no count."""
+    import ctypes
+
+    import torch
+
+    n = slot.shape[0]
+    n_slots = table.shape[1] if reads_planes(handle) else table.shape[0]
+    out = torch.empty((26, n), dtype=torch.float32, device=slot.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if inst_table is None:
+        err = handle.fh_slot_fetch(slot.data_ptr(), n, table.data_ptr(), n_slots,
+                                   out.data_ptr(), stream)
+    else:
+        fn = handle.fh_slot_fetch_inst
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, i, vp, ctypes.c_longlong, vp, i, vp, vp]
+        fn.restype = i
+        err = fn(slot.data_ptr(), inst.data_ptr(), n, table.data_ptr(), n_slots,
+                 inst_table.data_ptr(), inst_table.shape[0], out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"a tree's slot fetch failed to launch: error {err}")
+    return out
+
+
+@contextlib.contextmanager
+def using_tree(build, handle):
+    """build.using(handle); for a tree of PLANE_TABLE_LIBS the slot fetch
+    of the pipeline's callers (fused/pt_fused.py `trace_stage`,
+    integrator/pt.py) is that tree's, on a plane-major copy of the row
+    table it is given, so that the pipeline renders as under this tree."""
+    from fredholm_tpu_torch.fused import slot_fetch
+    from fredholm_tpu_torch.integrator import pt as wavefront
+
+    with build.using(handle):
+        if not reads_planes(handle):
+            yield handle
+            return
+        planes = {}
+
+        def fetch(rows, slot, inst=None, inst_table=None):
+            if rows.data_ptr() not in planes:
+                planes[rows.data_ptr()] = rows.T.contiguous()
+            return tree_fetch(handle, planes[rows.data_ptr()], slot, inst, inst_table)
+
+        kept = slot_fetch.fetch_geom_by_slot, wavefront.fetch_geom_by_slot
+        slot_fetch.fetch_geom_by_slot = wavefront.fetch_geom_by_slot = fetch
+        try:
+            yield handle
+        finally:
+            slot_fetch.fetch_geom_by_slot, wavefront.fetch_geom_by_slot = kept
+
+
+def fetch_turns(tag, trees, rows, slot, inst=None, inst_table=None, rounds=6):
+    """Each tree's slot fetch on the same slots, each on the table in its
+    own layout (tree_fetch), held bit-equal to this tree's first, then
+    timed in turns (time_turns)."""
+    import torch
+
+    planes = rows.T.contiguous() if PLANE_TABLE_LIBS else None
+    calls = {}
+    for t, h in trees.items():
+        table = planes if reads_planes(h) else rows
+        calls[("fetch", t)] = (lambda h=h, table=table:
+                               tree_fetch(h, table, slot, inst, inst_table))
+    want = calls[("fetch", THIS_TREE)]()
+    for t in list(trees)[1:]:
+        if not torch.equal(calls[("fetch", t)]().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{tag}: tree {t}'s slot fetch differs from this tree's")
+    return time_turns(tag, calls, rounds)["fetch"]
+
+
+def fetch_by_depth(r, depth, spp=4):
+    """({bounce: [device ms of each launch]}, launches, calls) of the slot
+    fetch in spp samples of r, after one warm-up sample (torch.profiler):
+    each call of the pipeline's fetch runs in a range named by its bounce,
+    and each of the fetch's kernels, timed by its own event, is counted at
+    the bounce of the range whose span on the device holds it. The
+    profiler does not record every launch (fewer launches placed than
+    calls): a kernel's total over a window is no count of its launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fredholm_tpu_torch.fused import kernels, slot_fetch
+
+    fetch, raygen = slot_fetch.fetch_geom_by_slot, kernels.raygen
+    bounce = [0]
+
+    def first(*a, **kw):  # a sample starts at bounce 0
+        bounce[0] = 0
+        return raygen(*a, **kw)
+
+    def ranged(*a, **kw):
+        with record_function(f"slot fetch bounce {bounce[0]}"):
+            bounce[0] += 1
+            return fetch(*a, **kw)
+
+    kernels.raygen, slot_fetch.fetch_geom_by_slot = first, ranged
+    try:
+        r.render(n_samples=1, max_depth=depth)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r.render(n_samples=spp, max_depth=depth)
+            torch.cuda.synchronize()
+    finally:
+        kernels.raygen, slot_fetch.fetch_geom_by_slot = raygen, fetch
+    spans, launches, calls = [], [], 0
+    for ev in prof.events():
+        if ev.name.startswith("slot fetch bounce "):
+            if ev.device_type == DeviceType.CPU:
+                calls += 1
+            else:
+                spans.append((ev.time_range.start, ev.time_range.end,
+                              int(ev.name.rsplit(" ", 1)[1])))
+        elif ev.device_type == DeviceType.CUDA and "k_slot_fetch" in ev.name:
+            launches.append(ev.time_range)
+    per_d = {}
+    for k in launches:
+        for lo, hi, d in spans:
+            if lo <= k.start <= hi:
+                per_d.setdefault(d, []).append(k.elapsed_us() / 1e3)
+                break
+    return dict(sorted(per_d.items())), len(launches), calls
 
 
 def time_turns(tag, calls, rounds, show=True):
@@ -675,7 +844,7 @@ def tree_turns(tag, build, trees, fns, rounds):
 
     def under(handle, fn):
         def call():
-            with build.using(handle):
+            with using_tree(build, handle):
                 return fn()
         return call
 
@@ -750,7 +919,7 @@ def metric_turns(tag, name, r, spp, depth, build, trees, rounds):
     mpv = {t: [] for t in order}
     for rnd in range(rounds):
         for t in (order if rnd % 2 == 0 else order[::-1]):
-            with build.using(trees[t]):
+            with using_tree(build, trees[t]):
                 pv_t, s_t, _ = timed_metric(r, spp, depth, build)
             mpv[t].append(pv_t / s_t / 1e6)
     print(f"{tag} {name} end to end in turns, Mpath vertices/s: " + "; ".join(
@@ -1005,8 +1174,9 @@ def parse_args(argv):
                    "mega's full variant at transmission_rough's d = 1 ([20]) and its "
                    "textured one at texture's d = 0-2 and two other setups' d = 1 ([23]) "
                    "where the tree has them, "
-                   "its B7 on [13]'s rays and its B3 at each bounce of the wavefront "
-                   "metric ([12]), after holding their outputs equal; may repeat")
+                   "its B7 on [13]'s rays, its B3 at each bounce of the wavefront "
+                   "metric ([12]) and its slot fetches at metric 2's and metric 5's d = 0 "
+                   "and 1 ([9], [24]), after holding their outputs equal; may repeat")
     return p.parse_args(argv)
 
 
@@ -1071,6 +1241,10 @@ def main() -> None:
         lib_paths[csrc] = _build.build(os.path.abspath(csrc), info)
         trees[csrc] = _build.load(lib_paths[csrc])
         tree_infos[csrc] = info
+        if not reads_rows(csrc):
+            PLANE_TABLE_LIBS.append(trees[csrc])
+        print(f"[1] {csrc}: its slot fetch reads the "
+              f"{'row table [S, 32]' if reads_rows(csrc) else 'plane-major table [32, S]'}")
         for name, regs in info.get("ptxas", {}).items():
             if "dense" in name or "k_mega" in name or "k_resident" in name:
                 print(f"[1] ptxas {csrc} {name}: {regs}")
@@ -1088,6 +1262,9 @@ def main() -> None:
                      for k in sass[THIS_TREE] if k not in same}
             print(f"[1] SASS against {t}: identical {len(same)} kernels {same}; differing "
                   f"(instructions here, there) {other}")
+            rest = [k for k in sass[THIS_TREE] if "slot_fetch_cu" not in k]
+            print(f"[1] SASS against {t}, kernels outside slot_fetch.cu: "
+                  f"{sum(k in same for k in rest)} of {len(rest)} identical")
     # turns of each timing against the other trees: their differences are
     # a few percent, so more turns than for this tree alone
     rounds = 6 if len(trees) > 1 else 2
@@ -1346,12 +1523,16 @@ def main() -> None:
     b45_err["clustered_closest"].append(
         check_clustered("[7]", "sweep primaries 512x288", clustered, c, r0)[1])
     kh0 = clustered.intersect_closest_clustered(c, r0)
-    geom_k = slot_fetch.fetch_geom_by_slot(sweep_dev["slot_attrs"], kh0["slot"])
-    geom_t = slot_fetch.fetch_twin(sweep_dev["slot_attrs"], kh0["slot"])
+    geom_k = slot_fetch.fetch_geom_by_slot(sweep_dev["slot_rows"], kh0["slot"])
+    geom_t = slot_fetch.fetch_twin(sweep_dev["slot_rows"], kh0["slot"])
     results["slot_fetch"] = (geom_k - geom_t).abs().max().item()
-    if not torch.equal(geom_k, geom_t):
+    if not torch.equal(geom_k.view(torch.int32), geom_t.view(torch.int32)):
         raise AssertionError("slot fetch kernel differs from its twin")
-    print(f"[7] slot fetch {ns} lanes: bit-equal to its twin")
+    geom_p = pf.trace_stage(cfg2, sweep_dev, r0, ns, 1, 0).geom
+    if not torch.equal(geom_p.view(torch.int32), geom_k.view(torch.int32)):
+        raise AssertionError("[7] the pipeline's planes are not the slot fetch's")
+    print(f"[7] slot fetch {ns} lanes (row table {tuple(sweep_dev['slot_rows'].shape)}): "
+          f"bit-equal to its twin; the pipeline's planes are the kernel's")
     _, r1, _, _ = kernels.mega(cfg2, 0, sv2, usv2, sweep_dev, n_spp2, si0, st0, r0, None,
                                pf.Traced(kh0, None, geom_k))
     occ_view = r1[:, :n_occ * ns]
@@ -1435,6 +1616,7 @@ def main() -> None:
 
     # ---- 9: metric 2 (bench.py:170-182: hosek sweep 512x288, 8 spp, depth 5)
     t0 = time.perf_counter()
+    fetch_extra = {}  # the slot fetches' d = 0 readings, on their kernels-line rows
     spp2, depth2 = 8, 5
     pv2, seconds2, launches2 = timed_metric(rs, spp2, depth2, _build)
     beauty2 = rs.get_layer("beauty")
@@ -1470,14 +1652,15 @@ def main() -> None:
     occ_view = rays[:, :n_occ * ns]
     rad_view = rays[:, n_occ * ns:nb2 * ns]
     slots = tr1.hits["slot"]
+    rows2 = sweep_dev["slot_rows"]
     reps = {"clustered_closest": (10, 1), "clustered_any": (10, 1)}
     times2 = time_pairs("[9]", {
         "clustered_closest": (lambda: clustered.intersect_closest_clustered(c, rad_view),
                               lambda: clustered.intersect_closest_twin(c, rad_view)),
         "clustered_any": (lambda: clustered.intersect_any_clustered(c, occ_view),
                           lambda: clustered.intersect_any_twin(c, occ_view)),
-        "slot_fetch": (lambda: slot_fetch.fetch_geom_by_slot(sweep_dev["slot_attrs"], slots),
-                       lambda: slot_fetch.fetch_twin(sweep_dev["slot_attrs"], slots)),
+        "slot_fetch": (lambda: slot_fetch.fetch_geom_by_slot(rows2, slots),
+                       lambda: slot_fetch.fetch_twin(rows2, slots)),
         "raygen": (lambda: kernels.raygen(cfg2, sv2, usv2, n_spp2),
                    lambda: pf.raygen_twin(cfg2, sv2, usv2, n_spp2)),
         "mega": (lambda: kernels.mega(cfg2, 1, sv2, usv2, sweep_dev, n_spp2, si, st, rays, pend,
@@ -1526,9 +1709,7 @@ def main() -> None:
           f"{hit_slots} distinct slots")
     bounds2 = {
         **walk_bounds["front to back"],
-        # 26 planes written for every lane, read for each distinct hit slot
-        "slot_fetch": bound(nbytes(slots) + 4 * slot_fetch.A_USED * (slots.shape[0] + hit_slots),
-                            0),
+        "slot_fetch": fetch_bound(slots),
         "raygen": bound(nbytes(n_spp2) + ns * (4 * pf.ST_ROWS + 8 + 4 * pf.RAY_ROWS),
                         ns * STAGE_OPS["raygen"]),
         "mega": bound(mega_bytes(cfg2, pf, kernels, 1, ns, tr1, sweep_dev, sv2, usv2),
@@ -1538,12 +1719,32 @@ def main() -> None:
     }
     for k, (ms, by, unfused) in bounds2.items():
         print(f"[9] {k}: bound {ms:.4f} ms ({by}), unfused {unfused:.4f} ms")
-    g_fetch = graph_ms(lambda: slot_fetch.fetch_geom_by_slot(sweep_dev["slot_attrs"], slots))
+    g_fetch = graph_ms(lambda: slot_fetch.fetch_geom_by_slot(rows2, slots))
     graph_short["slot_fetch"] = g_fetch
     print(f"[9] slot_fetch at metric 2's d = 1: graph {g_fetch:.5f} ms, events "
           f"{times2['slot_fetch'][0]:.5f} ms, bound {bounds2['slot_fetch'][0]:.5f} ms "
           f"({bounds2['slot_fetch'][1]}), {bounds2['slot_fetch'][0] / g_fetch:.3f} of the bound "
           f"by graph, launches on metric 2 {launches2.get('slot_fetch', 0)}")
+    # B6 at metric 2's d = 0 (the coherent primaries' hits), held to its
+    # twin; with --against trees both bounces in turns with their B6
+    slots0 = tr0.hits["slot"]
+    f0_k = slot_fetch.fetch_geom_by_slot(rows2, slots0)
+    if not torch.equal(f0_k.view(torch.int32),
+                       slot_fetch.fetch_twin(rows2, slots0).view(torch.int32)) \
+            or not torch.equal(f0_k.view(torch.int32), tr0.geom.view(torch.int32)):
+        raise AssertionError("[9] slot fetch at d = 0: not bit-equal to its twin or not the "
+                             "pipeline's planes")
+    b0 = fetch_bound(slots0)
+    g0 = graph_ms(lambda: slot_fetch.fetch_geom_by_slot(rows2, slots0))
+    e0 = cuda_ms(lambda: slot_fetch.fetch_geom_by_slot(rows2, slots0), 20)
+    fetch_extra["slot_fetch"] = {"d0": {"graph_ms": g0, "events_ms": e0, "bound_ms": b0[0]}}
+    print(f"[9] slot_fetch at metric 2's d = 0: {int((slots0 >= 0).sum())} hits on "
+          f"{torch.unique(slots0[slots0 >= 0]).numel()} slots, bit-equal to its twin and the "
+          f"pipeline's planes; graph {g0:.5f} ms, events {e0:.5f} ms, bound {b0[0]:.5f} ms "
+          f"({b0[1]}), {b0[0] / g0:.3f} of the bound by graph")
+    if len(trees) > 1:
+        for d, sl in ((0, slots0), (1, slots)):
+            fetch_turns(f"[9] slot_fetch d={d}", trees, rows2, sl, rounds=rounds)
 
     # B4/B5 in every kept variant, in turns: CUDA events around the wrapper
     # calls (the kernel table's times) and CUDA-graph replays (device time
@@ -1743,7 +1944,7 @@ def main() -> None:
         mpv = {t: [] for t in trees}
         for rnd in range(rounds):
             for t in (list(trees) if rnd % 2 == 0 else list(trees)[::-1]):
-                with _build.using(trees[t]):
+                with using_tree(_build, trees[t]):
                     pv_t, s_t, _ = timed_metric(rw, 4, depth, _build)
                 mpv[t].append(pv_t / s_t / 1e6)
         print("[12] the wavefront metric end to end in turns, Mpath vertices/s: " + "; ".join(
@@ -2032,7 +2233,7 @@ def main() -> None:
         for k in ("raygen", "final_resolve"):
             results[k] = max(results[k], res18[k])
         for t in full_trees[1:]:
-            with _build.using(trees[t]):
+            with using_tree(_build, trees[t]):
                 res_t = compare_stages(f"[18] {name} {t}", cfg18, pf, kernels, sv18, usv18,
                                        r._dev, n_spp18, stage_tracer(pf, cfg18, r._dev, n18),
                                        depths=range(cfg18.max_depth))
@@ -2394,7 +2595,9 @@ def main() -> None:
     if c5["identity"] or c5["n_instances"] != 16 or n_tris5 < 10_000_000:
         raise AssertionError("[24] metric 5's scene is not 16 moved placements of 10.4M triangles")
 
-    # the instanced fetch against its twin on metric 5's d = 0 and d = 1 hits
+    # the instanced fetch against its twin on metric 5's d = 0 and d = 1
+    # hits, then timed at each beside its bound (with --against trees also
+    # in turns with theirs, each tree on the table in its own layout)
     n5 = r5.width * r5.height
     p5 = r5._params(5)
     cfg5 = pf.make_config(dev5, p5)
@@ -2403,44 +2606,47 @@ def main() -> None:
     nb5, n_occ5 = len(cfg5.blocks), len(cfg5.occ_blocks(True))
     st5, si5, rays5 = kernels.raygen(cfg5, sv5, usv5, n_spp5)
     tr5 = pf.trace_stage(cfg5, dev5, rays5, n5, 1, 0, coherent=True)
-    sa5, it5 = dev5["slot_attrs"], dev5["inst_table"]
-    err24 = []
+    rows5, it5 = dev5["slot_rows"], dev5["inst_table"]
+    err24, hits24 = [], {}
     for d in (0, 1):
         if d == 1:
             st5, rays5, pend5, _ = kernels.mega(cfg5, 0, sv5, usv5, dev5, n_spp5, si5, st5, rays5,
                                                 None, tr5)
             tr5 = pf.trace_stage(cfg5, dev5, rays5, n5, nb5, n_occ5)
         slots5, inst5 = tr5.hits["slot"], tr5.hits["inst"]
-        gk = slot_fetch.fetch_geom_by_slot(sa5, slots5, inst5, it5)
-        gt = slot_fetch.fetch_inst_twin(sa5, slots5, inst5, it5)
+        hits24[d] = (slots5, inst5)
+        gk = slot_fetch.fetch_geom_by_slot(rows5, slots5, inst5, it5)
+        gt = slot_fetch.fetch_inst_twin(rows5, slots5, inst5, it5)
         same = torch.equal(gk.view(torch.int32), gt.view(torch.int32))
+        piped = torch.equal(tr5.geom.view(torch.int32), gk.view(torch.int32))
         err24.append((gk - gt).abs().max().item())
         hit5 = slots5 >= 0
         print(f"[24] slot_fetch_inst d={d}: {slots5.shape[0]} lanes, {int(hit5.sum())} hits on "
               f"{torch.unique(inst5[hit5]).numel()} placements, "
               f"{torch.unique(slots5[hit5]).numel()} distinct slots; "
               f"{'bit-equal to' if same else 'DIFFERS from'} its twin (max|err| {err24[-1]:.3g}); "
-              f"the pipeline's planes {'are' if torch.equal(tr5.geom, gk) else 'are NOT'} the "
-              f"kernel's")
-        if not same or not torch.equal(tr5.geom, gk):
+              f"the pipeline's planes {'are' if piped else 'are NOT'} the kernel's")
+        if not same or not piped:
             raise AssertionError(f"[24] the instanced slot fetch differs from its twin at d={d}")
     results["slot_fetch_inst"] = max(err24)
     times24 = time_pairs("[24]", {"slot_fetch_inst": (
-        lambda: slot_fetch.fetch_geom_by_slot(sa5, slots5, inst5, it5),
-        lambda: slot_fetch.fetch_inst_twin(sa5, slots5, inst5, it5))}, {})
-    hit_slots5 = torch.unique(slots5[slots5 >= 0]).numel()
-    bounds24 = {"slot_fetch_inst": bound(
-        # the slot and inst of every lane, 26 planes written for each and
-        # read for each distinct hit slot, the rows of the placements hit
-        nbytes(slots5, inst5) + 4 * slot_fetch.A_USED * (slots5.shape[0] + hit_slots5)
-        + nbytes(it5[torch.unique(inst5)]), slots5.shape[0] * INST_XFORM_OPS)}
-    g24 = graph_ms(lambda: slot_fetch.fetch_geom_by_slot(sa5, slots5, inst5, it5))
-    b24 = bounds24["slot_fetch_inst"]
-    print(f"[24] slot_fetch_inst at metric 5's d = 1: events {times24['slot_fetch_inst'][0]:.5f} "
-          f"ms, graph {g24:.5f} ms, twin {times24['slot_fetch_inst'][1]:.4f} ms; bound "
-          f"{b24[0]:.5f} ms ({b24[1]}), unfused {b24[2]:.5f} ms, {b24[0] / g24:.3f} of the "
-          f"bound by graph")
-    extra_res["slot_fetch_inst"] = {"graph_ms": g24}
+        lambda: slot_fetch.fetch_geom_by_slot(rows5, slots5, inst5, it5),
+        lambda: slot_fetch.fetch_inst_twin(rows5, slots5, inst5, it5))}, {})
+    bounds24 = {"slot_fetch_inst": fetch_bound(slots5, inst5, it5)}
+    inst24 = {}
+    for d, (sl, ins) in hits24.items():
+        b24 = fetch_bound(sl, ins, it5)
+        g24 = graph_ms(lambda: slot_fetch.fetch_geom_by_slot(rows5, sl, ins, it5))
+        e24 = times24["slot_fetch_inst"][0] if d == 1 else cuda_ms(
+            lambda: slot_fetch.fetch_geom_by_slot(rows5, sl, ins, it5), 20)
+        inst24[d] = {"graph_ms": g24, "events_ms": e24, "bound_ms": b24[0]}
+        print(f"[24] slot_fetch_inst at metric 5's d = {d}: events {e24:.5f} ms, graph "
+              f"{g24:.5f} ms; bound {b24[0]:.5f} ms ({b24[1]}), unfused {b24[2]:.5f} ms, "
+              f"{b24[0] / g24:.3f} of the bound by graph")
+        if len(trees) > 1:
+            fetch_turns(f"[24] slot_fetch_inst d={d}", trees, rows5, sl, ins, it5, rounds=rounds)
+    extra_res["slot_fetch_inst"] = {"graph_ms": inst24[1]["graph_ms"],
+                                    "graph_shapes": "metric 5's d = 1", "d0": inst24[0]}
 
     # the instanced golden's setup at 512x512, kernels against twins
     r, kw = golden_setup("instanced", 512)
@@ -2494,6 +2700,21 @@ def main() -> None:
         "launches": launches24,
     }))
     profile_busy("[24]", "metric 5", r5, 5, start_tracer=False)
+    # the instanced fetch in metric 5's pipeline, one launch a bounce
+    # (torch.profiler's kernel times), under this tree's kernels and each
+    # --against tree's, beside its isolated graph readings
+    for t, h in trees.items():
+        with using_tree(_build, h):
+            per_d, launches, calls = fetch_by_depth(r5, 5)
+        flat = [x for v in per_d.values() for x in v]
+        print(f"[24] k_slot_fetch_inst in metric 5's pipeline, {t}: ms a launch by bounce "
+              + "; ".join(f"d={d} {sum(v) / len(v):.5f} ({', '.join(f'{x:.5f}' for x in v)})"
+                          for d, v in per_d.items())
+              + f"; mean {sum(flat) / max(len(flat), 1):.5f} ({len(flat)} launches placed, "
+              f"{launches} recorded, {calls} calls); this tree isolated by graph d=0 "
+              f"{inst24[0]['graph_ms']:.5f}, d=1 {inst24[1]['graph_ms']:.5f}")
+    if len(trees) > 1:
+        metric_turns("[24]", "metric 5", r5, 2, 5, _build, trees, rounds)
     phase_done(24, t0)
 
     # ---- 6: records. dense_closest and mega are timed on metric 1's path
@@ -2537,7 +2758,7 @@ def main() -> None:
     ]
     for k, g in graph_short.items():
         extra_res[k] = {"graph_ms": g, "graph_shapes": "metric 2's d = 1" if k == "slot_fetch"
-                        else "metric 1"}
+                        else "metric 1", **fetch_extra.get(k, {})}
     kern_json = [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
          "launches": int(lch.get(key, 0)), "max_abs_err": results[name],

@@ -1067,10 +1067,10 @@ def trace_stage(cfg: FusedConfig, dev: Dict, rays, n: int, n_blocks: int,
     n_cl = n_blocks - n_occ
     hits = trace(dev, rays, n_occ, n_cl, n, **kw) if n_cl else None
     geom = None
-    if hits is not None and "slot" in hits and "slot_attrs" in dev:
+    if hits is not None and "slot" in hits and "slot_rows" in dev:
         # instanced scenes: the planes move into world space in the fetch
         inst = hits["inst"] if "inst_table" in dev else None
-        geom = fetch_geom_by_slot(dev["slot_attrs"], hits["slot"], inst, dev.get("inst_table"))
+        geom = fetch_geom_by_slot(dev["slot_rows"], hits["slot"], inst, dev.get("inst_table"))
     return Traced(hits, occ, geom)
 
 

@@ -1,19 +1,22 @@
 """Hit-attribute fetch keyed by traversal slot (clustered scenes).
 
-Port of fredholm_tpu/fused/slot_fetch.py. The scene upload lays the
-per-face geometry attributes out in slot order ([32, K*128] float32, the
-blocks layout; slot = cid * 128 + in-cluster index), and the fetch reads
-the 26 used rows for each hit slot:
+Port of fredholm_tpu/fused/slot_fetch.py. The scene build lays the
+per-face geometry attributes out in slot order (slot = cid * 128 +
+in-cluster index): on the host as the reference's plane-major table
+`build_slot_attrs` [32, K*128] float32, uploaded slot-major as
+`slot_rows` [K*128, 32] (a slot's 26 used words and 6 pad words make one
+128-byte row, which a hit reads in 4 sectors; csrc/slot_fetch.cu). The
+fetch reads the 26 used words of each hit slot's row into planes:
 
-  out[a, i] = slot_attrs[a, slot[i]] if 0 <= slot[i] < S else 0,  a < 26
+  out[a, i] = rows[slot[i], a] if 0 <= slot[i] < S else 0,  a < 26
 
-Rows follow pt_fused's geometry columns (v0, v1, v2, n0, n1, n2, uv0-2,
+Words follow pt_fused's geometry columns (v0, v1, v2, n0, n1, n2, uv0-2,
 area, mat_id), so the planes take the place of the fused_table row
 gather; the material stage is unchanged. `fetch_geom_by_slot` launches
 csrc/slot_fetch.cu on CUDA tensors (or raises) and runs the twin on CPU
 tensors.
 
-Instanced scenes keep object-space geometry in slot_attrs; given the hits'
+Instanced scenes keep object-space geometry in the table; given the hits'
 instance ids and the scene's inst_table [I, 24] (scene/device.py
 `instance_table`), the fetch also moves each lane's attributes into world
 space (fredholm_tpu/fused/pt_fused.py:1237 `_xform_attrs_cols`, which the
@@ -58,13 +61,25 @@ def build_slot_attrs(np_dev: Dict, blocks_row9) -> np.ndarray:
     return out
 
 
-def fetch_twin(slot_attrs: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+def slot_rows(slot_attrs: np.ndarray) -> np.ndarray:
+    """The device table: the host table [32, S] slot-major, [S, 32]
+    float32, a slot's words in one 128-byte row."""
+    return np.ascontiguousarray(np.asarray(slot_attrs, np.float32).T)
+
+
+def _gather(rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """[26, N] planes of the hit slots' rows, zero where slot misses."""
+    s = slot.to(torch.int64)
+    hit = (s >= 0) & (s < rows.shape[0])
+    g = rows[torch.clamp(s, 0, rows.shape[0] - 1), :A_USED]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    return torch.where(hit[:, None], g, zero).T.contiguous()
+
+
+def fetch_twin(rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch fetch: [26, N] float32."""
     _build.LAUNCHES["slot_fetch_twin"] += 1
-    s = slot.to(torch.int64)
-    hit = (s >= 0) & (s < slot_attrs.shape[1])
-    rows = slot_attrs[:A_USED, torch.clamp(s, 0, slot_attrs.shape[1] - 1)]
-    return torch.where(hit[None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return _gather(rows, slot)
 
 
 def xform_twin(geom: torch.Tensor, inst: torch.Tensor, inst_table: torch.Tensor) -> torch.Tensor:
@@ -95,33 +110,33 @@ def xform_twin(geom: torch.Tensor, inst: torch.Tensor, inst_table: torch.Tensor)
     return torch.stack(g)
 
 
-def fetch_inst_twin(slot_attrs: torch.Tensor, slot: torch.Tensor, inst: torch.Tensor,
+def fetch_inst_twin(rows: torch.Tensor, slot: torch.Tensor, inst: torch.Tensor,
                     inst_table: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch instanced fetch: [26, N] float32, world space."""
     _build.LAUNCHES["slot_fetch_inst_twin"] += 1
-    s = slot.to(torch.int64)
-    hit = (s >= 0) & (s < slot_attrs.shape[1])
-    rows = slot_attrs[:A_USED, torch.clamp(s, 0, slot_attrs.shape[1] - 1)]
-    geom = torch.where(hit[None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-    return xform_twin(geom, inst, inst_table)
+    return xform_twin(_gather(rows, slot), inst, inst_table)
 
 
-def fetch_geom_by_slot(slot_attrs: torch.Tensor, slot: torch.Tensor, inst: torch.Tensor = None,
+def fetch_geom_by_slot(rows: torch.Tensor, slot: torch.Tensor, inst: torch.Tensor = None,
                        inst_table: torch.Tensor = None) -> torch.Tensor:
-    """Geometry-attribute planes [26, N] for hit slots [N] (-1 = miss); in
-    world space by the hits' instances [N] where inst_table is given."""
-    if slot_attrs.dtype != torch.float32 or slot_attrs.dim() != 2 \
-            or slot_attrs.shape[0] != SLOT_ROWS or not slot_attrs.is_contiguous():
-        raise ValueError(f"slot_attrs must be contiguous float32 [{SLOT_ROWS}, S]")
+    """Geometry-attribute planes [26, N] for hit slots [N] (-1 = miss) of
+    the row table `rows` (dev["slot_rows"]); in world space by the hits'
+    instances [N] where inst_table is given."""
+    if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != SLOT_ROWS \
+            or not rows.is_contiguous() or rows.data_ptr() % 16:
+        # the kernels read a row with 16-byte loads
+        raise ValueError(f"rows must be a contiguous float32 [S, {SLOT_ROWS}] table on a "
+                         "16-byte boundary")
     if slot.dtype != torch.int32 or slot.dim() != 1 or not slot.is_contiguous():
         raise ValueError("slot must be a contiguous int32 [N]")
-    if slot.device != slot_attrs.device:
-        raise ValueError("slot and slot_attrs on different devices")
+    if slot.device != rows.device:
+        raise ValueError("slot and rows on different devices")
     if inst_table is not None:
         if inst_table.dtype != torch.float32 or inst_table.dim() != 2 \
                 or inst_table.shape[1] != 24 or inst_table.shape[0] < 1 \
-                or not inst_table.is_contiguous():
-            raise ValueError("inst_table must be a contiguous float32 [I >= 1, 24]")
+                or not inst_table.is_contiguous() or inst_table.data_ptr() % 16:
+            raise ValueError("inst_table must be a contiguous float32 [I >= 1, 24] on a "
+                             "16-byte boundary")
         if inst is None or inst.dtype != torch.int32 or inst.shape != slot.shape \
                 or not inst.is_contiguous():
             raise ValueError("inst must be a contiguous int32 tensor shaped as slot")
@@ -129,8 +144,8 @@ def fetch_geom_by_slot(slot_attrs: torch.Tensor, slot: torch.Tensor, inst: torch
             raise ValueError("inst, inst_table and slot on different devices")
     if slot.device.type == "cpu":
         if inst_table is not None:
-            return fetch_inst_twin(slot_attrs, slot, inst, inst_table)
-        return fetch_twin(slot_attrs, slot)
+            return fetch_inst_twin(rows, slot, inst, inst_table)
+        return fetch_twin(rows, slot)
     if slot.device.type != "cuda":
         raise NotImplementedError(f"no slot-fetch kernel for device {slot.device}")
     n = slot.shape[0]
@@ -143,13 +158,13 @@ def fetch_geom_by_slot(slot_attrs: torch.Tensor, slot: torch.Tensor, inst: torch
         fetch_inst.argtypes = [vp, vp, i, vp, ctypes.c_longlong, vp, i, vp, vp]
         fetch_inst.restype = i
         err = fetch_inst(
-            slot.data_ptr(), inst.data_ptr(), n, slot_attrs.data_ptr(), slot_attrs.shape[1],
+            slot.data_ptr(), inst.data_ptr(), n, rows.data_ptr(), rows.shape[0],
             inst_table.data_ptr(), inst_table.shape[0], out.data_ptr(), stream)
         _build.check(err, "slot_fetch_inst")
         _build.LAUNCHES["slot_fetch_inst"] += 1
         return out
-    err = _build.lib().fh_slot_fetch(slot.data_ptr(), n, slot_attrs.data_ptr(),
-                                     slot_attrs.shape[1], out.data_ptr(), stream)
+    err = _build.lib().fh_slot_fetch(slot.data_ptr(), n, rows.data_ptr(), rows.shape[0],
+                                     out.data_ptr(), stream)
     _build.check(err, "slot_fetch")
     _build.LAUNCHES["slot_fetch"] += 1
     return out

@@ -153,8 +153,8 @@ def _face_data(dev: Dict, hit: Dict):
     """(verts [N, 3, 3], normals [N, 3, 3], uvs [N, 3, 2], mat_id [N]) of
     the hit faces: by B6 slot fetch on clustered scenes (misses are zero;
     pt.py:299-311), else by gathering the clamped prim's rows."""
-    if "slot" in hit and "slot_attrs" in dev:
-        a = fetch_geom_by_slot(dev["slot_attrs"], hit["slot"]).T
+    if "slot" in hit and "slot_rows" in dev:
+        a = fetch_geom_by_slot(dev["slot_rows"], hit["slot"]).T
         return (a[:, 0:9].reshape(-1, 3, 3), a[:, 9:18].reshape(-1, 3, 3),
                 a[:, 18:24].reshape(-1, 3, 2), torch.round(a[:, 25]).to(torch.int64))
     p = torch.clamp(hit["prim"].to(torch.int64), 0, dev["n_faces"] - 1)

@@ -12,8 +12,13 @@ byte-identical to the reference's numpy path, then uploaded once:
                                        (dense scenes, F <= 1024)
   clusters         dict                the clustered traversal tables
                                        (accel/clustered.py; F > 1024)
-  slot_attrs       [32, K*128]    f32  geometry in slot order
-                                       (fused/slot_fetch.py; F > 1024)
+  slot_rows        [K*128, 32]    f32  geometry in slot order, a slot's
+                                       26 words (+6 pad) in one 128 B
+                                       row: the host's slot_attrs [32,
+                                       K*128] (fused/slot_fetch.py
+                                       `build_slot_attrs`, the reference's
+                                       layout) slot-major (`slot_rows`);
+                                       F > 1024
   tex_runs         [R, 16]        i32  texel runs, uint32 bits, of every
                                        texture and the white fallback
                                        (scene/texture.py)
@@ -31,11 +36,11 @@ reference's per-face and per-light SoA (device.py:143-162):
 Clustered scenes are one BLAS under one identity instance. The reference
 builds slot_attrs only above 2048 faces (a TPU gather cost); its own
 test shows the slot fetch and the row gather bit-identical, so the port
-builds it for every clustered scene.
+builds the slot table for every clustered scene.
 
 Instanced scenes (`build_instanced_device_scene`, an InstancedScene) are
 always clustered: one BLAS per referenced submesh, shared by all of its
-placements, under a TLAS of the placements. fused_table, slot_attrs and
+placements, under a TLAS of the placements. fused_table, slot_rows and
 the face SoA stay in OBJECT space, indexed by the base scene's face id;
 the lights are world space, one row for every placed copy of an emissive
 face; and
@@ -64,7 +69,7 @@ from ..accel.bvh import build_bvh
 from ..accel.cluster import SC_GROUP, TLAS, build_tlas, extract_hierarchy, update_tlas_instances
 from ..accel.clustered import move_instances, prepare_clustered
 from ..accel.dense import MAX_FACES as DENSE_MAX_FACES
-from ..fused.slot_fetch import build_slot_attrs
+from ..fused.slot_fetch import build_slot_attrs, slot_rows
 from .texture import pack_textures
 from .types import InstancedScene, MeshInstance, Scene, materials_to_soa
 
@@ -334,6 +339,8 @@ def build_device_scene(scene: Scene, device) -> Dict:
     n_lights, n_faces = host.pop("n_lights"), host.pop("n_faces")
     kinds = host.pop("tex_kinds")
     tlas = host.pop("tlas", None)
+    if tlas is not None:
+        host["slot_rows"] = slot_rows(host.pop("slot_attrs"))
     dev = _upload(host, n_lights, n_faces, device)
     dev["tex_kinds"] = kinds
     if tlas is not None:
@@ -363,9 +370,8 @@ def dev_from_reference(np_dev: Dict, device) -> Dict:
     if "inst_table" in np_dev:
         tlas = _tlas_from_reference(np_dev["clusters"], bool(np_dev["_inst_identity"]))
         tables["inst_table"] = np.asarray(np_dev["inst_table"], np.float32)
-        tables["slot_attrs"] = (np.asarray(np_dev["slot_attrs"], np.float32)
-                                if "slot_attrs" in np_dev
-                                else build_slot_attrs(np_dev, tlas.blocks[9]))
+        tables["slot_rows"] = slot_rows(np_dev["slot_attrs"] if "slot_attrs" in np_dev
+                                        else build_slot_attrs(np_dev, tlas.blocks[9]))
     else:
         tables["tri_soa"] = np.concatenate(
             [np.asarray(np_dev["tri_soa"][k], np.float32).reshape(1, -1) for k in _TRI_KEYS])
@@ -498,6 +504,7 @@ def build_instanced_device_scene(iscene: InstancedScene, device) -> Dict:
     host = build_instanced_host_tables(iscene)
     n_lights, n_faces = host.pop("n_lights"), host.pop("n_faces")
     kinds, tlas, keep = host.pop("tex_kinds"), host.pop("tlas"), host.pop("_host")
+    host["slot_rows"] = slot_rows(host.pop("slot_attrs"))
     dev = _upload(host, n_lights, n_faces, device)
     dev["tex_kinds"] = kinds
     dev["clusters"] = prepare_clustered(tlas, device)

@@ -20,8 +20,10 @@
   bit for bit in every visit order, with the exit on and off, and on
   constructed exact ties; its test counts equal a ray-at-a-time replay of
   the kernels' one-lane walk.
-- The slot-fetch twin against the reference's fetch (interpret mode),
-  bit-equal.
+- The slot-fetch twin, on the device's row table (the host's plane-major
+  table slot-major, bit for bit), against the reference's fetch of the
+  plane-major one (interpret mode), bit-equal; the wrapper refuses a
+  plane-major table and a misaligned row view.
 """
 
 import types
@@ -218,9 +220,15 @@ def test_card_records_hold_the_tables(both_tables):
 
 
 def test_device_scene_is_clustered():
-    dev = tdev.build_device_scene(terrain(n=48, size=6.0), "cpu")
-    assert "tri_soa" not in dev and "clusters" in dev
-    assert dev["slot_attrs"].shape == (32, dev["clusters"]["blocks"].shape[1])
+    """The device's slot table is the host's [32, S] slot-major, bit for
+    bit: one 128-byte row a slot."""
+    scene = terrain(n=48, size=6.0)
+    dev = tdev.build_device_scene(scene, "cpu")
+    assert "tri_soa" not in dev and "clusters" in dev and "slot_attrs" not in dev
+    host = tdev.build_host_tables(scene)["slot_attrs"]
+    rows = dev["slot_rows"]
+    assert rows.shape == (dev["clusters"]["blocks"].shape[1], 32) and rows.is_contiguous()
+    assert rows.numpy().tobytes() == np.ascontiguousarray(host.T).tobytes()
 
 
 # ---------------------------------------------------------------------------
@@ -581,9 +589,27 @@ def test_slot_fetch_twin_matches_reference():
     rng.shuffle(slots)
     want = j_fetch({"slot_attrs": jnp.asarray(table)}, jnp.asarray(slots))
     _build.LAUNCHES.clear()
-    got = tsf.fetch_geom_by_slot(torch.as_tensor(table), torch.as_tensor(slots))
+    got = tsf.fetch_geom_by_slot(torch.as_tensor(tsf.slot_rows(table)), torch.as_tensor(slots))
     assert got.shape == (tsf.A_USED, slots.shape[0])
     assert _build.LAUNCHES["slot_fetch_twin"] == 1
     for a in range(tsf.A_USED):
         assert np.asarray(want[a]).tobytes() == got[a].numpy().tobytes(), a
     assert (got[:, slots < 0] == 0).all()
+
+
+@pytest.mark.parametrize("table", ("planes", "misaligned"))
+def test_slot_fetch_refuses_other_tables(table):
+    """The wrapper takes the row table alone: a plane-major [32, S] table
+    and a [S, 32] view off a 16-byte boundary raise, on the CPU too."""
+    n_slots = 256
+    if table == "planes":
+        t = torch.zeros((tsf.SLOT_ROWS, n_slots), dtype=torch.float32)
+    else:
+        t = torch.zeros(n_slots * tsf.SLOT_ROWS + 1, dtype=torch.float32)[1:]
+        t = t.view(n_slots, tsf.SLOT_ROWS)
+        assert t.is_contiguous() and t.data_ptr() % 16
+    slot = torch.zeros(8, dtype=torch.int32)
+    _build.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="rows must be"):
+        tsf.fetch_geom_by_slot(t, slot)
+    assert not _build.LAUNCHES

@@ -9,10 +9,13 @@ fused/pt_fused.py `_xform_attrs_cols`):
   its numpy builder (`build_bvh(..., prefer_native=False)`, the builder
   the port copies; patched where the reference's device module imports
   it), and again after a move with a rotation and a non-uniform scale;
-  `dev_from_reference` carries the reference's tables across unchanged;
+  `dev_from_reference` carries the reference's tables across unchanged,
+  the device's slot rows the host's slot table slot-major, bit for bit;
 - the hit-attribute transform twin against `_xform_attrs_cols` on seeded
   planes at rtol = atol = 1e-6 (XLA:CPU may contract the affine rows'
   products into FMAs; the twin rounds each once, as the kernel does);
+  the CPU fetch on the row table equal to the twin after the reference's
+  fetch of the plane-major table;
 - `Renderer(device="cpu")` renders `instanced_tiles(grid=2, tile_n=8)`
   under a sun like the reference `Renderer` (16x16, 2 spp, depth 3): six
   layers at rtol = atol = 2e-4, path vertices exactly, through the
@@ -36,6 +39,7 @@ import torch
 from fredholm_tpu.accel.bvh import build_bvh as j_build_bvh
 from fredholm_tpu.fused import pt_fused as jpf
 from fredholm_tpu.fused.slot_fetch import build_slot_attrs as j_slot_attrs
+from fredholm_tpu.fused.slot_fetch import fetch_geom_by_slot as j_fetch
 from fredholm_tpu.renderer import Renderer as JRenderer
 from fredholm_tpu.scene import device as jdev
 from fredholm_tpu.scene import procedural as jproc
@@ -154,6 +158,9 @@ def test_host_tables_byte_equal(name):
         assert _same(ref["slot_attrs"], ref_slots)
 
     port = tdev.build_instanced_device_scene(iscene, "cpu")
+    # the device's slot table: the host's slot-major, bit for bit
+    assert "slot_attrs" not in port and port["slot_rows"].is_contiguous()
+    assert _same(port["slot_rows"].numpy(), np.ascontiguousarray(ref_slots.T))
     carried = tdev.dev_from_reference(ref, "cpu")
     assert set(carried) == set(port) - {"_host"}
     for k, v in carried.items():
@@ -209,13 +216,18 @@ def test_xform_twin_matches_reference():
     assert np.array_equal(got[0:9, 0], np.tile(table[0, [3, 7, 11]], 3))
     assert not got[9:18, :64].any() and not got[24, :64].any()
 
-    slot_attrs = torch.from_numpy(rng.uniform(-1, 1, (32, 512)).astype(np.float32))
-    slot = torch.from_numpy(rng.integers(-1, 600, n).astype(np.int32))
+    # the CPU wrapper on the row table: the reference's fetch of the
+    # plane-major table, then the twin; a slot past the table is a miss
+    planes = rng.uniform(-1, 1, (32, 512)).astype(np.float32)
+    slot = rng.integers(-1, 600, n).astype(np.int32)
+    want = j_fetch({"slot_attrs": jnp.asarray(planes)}, jnp.asarray(np.where(slot < 512, slot, -1)))
+    want = torch.from_numpy(np.stack([np.asarray(want[c]) for c in range(26)]))
     _build.LAUNCHES.clear()
-    fetched = tsf.fetch_geom_by_slot(slot_attrs, slot, torch.from_numpy(inst),
+    fetched = tsf.fetch_geom_by_slot(torch.from_numpy(tsf.slot_rows(planes)),
+                                     torch.from_numpy(slot), torch.from_numpy(inst),
                                      torch.from_numpy(table))
-    assert torch.equal(fetched, tsf.xform_twin(tsf.fetch_twin(slot_attrs, slot),
-                                               torch.from_numpy(inst), torch.from_numpy(table)))
+    assert torch.equal(fetched, tsf.xform_twin(want, torch.from_numpy(inst),
+                                               torch.from_numpy(table)))
     assert _build.LAUNCHES["slot_fetch_inst_twin"] == 1
 
 
